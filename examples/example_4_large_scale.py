@@ -4,8 +4,8 @@ The reference holds three dense (N, N) matrices on the host (distances,
 neighborhoods, and the pdist of safe_io.py:318-331), which caps practical
 network size around a few tens of thousands of nodes. safepy_tpu's
 band-STORAGE engine (ops/apsp_bandstore.py) keeps every N x N object as a
-radius-certified band of width W ~ sqrt(N * neighborhood_size), so one TPU
-chip runs ~100k-node networks and a 'data' mesh scales further
+radius-certified band of width W ~ sqrt(N * neighborhood_size), so one
+device runs ~100k-node networks and a 'data' mesh scales further
 (parallel/band_sharded.py).
 
 Nothing about the API changes: the facade auto-selects the engine above
@@ -24,8 +24,8 @@ from safepy_tpu.io.layout import calculate_edge_lengths
 
 def build_network(n=3000, k=8, seed=0):
     """k-nearest-neighbor geometric graph with embedded layout coordinates —
-    scale `n` up to ~100k on a real TPU chip (radius ~ sqrt(125 / (pi * n))
-    keeps neighborhoods local; see tools/tpu_bandstore_scale.py)."""
+    scale `n` up to ~100k on a GPU (radius ~ sqrt(125 / (pi * n)) keeps
+    neighborhoods local; chip_smoke.py runs 49,920 nodes)."""
     rng = np.random.default_rng(seed)
     coords = rng.uniform(-1, 1, (n, 2))
     from scipy.spatial import cKDTree
@@ -58,7 +58,7 @@ def main():
     sf = SAFE(verbose=False)
     sf.apsp_mode = "band"      # auto above sf.band_storage_min_nodes (32768)
     sf.random_seed = 17
-    # sf.mesh = make_mesh({"data": 8})  # row-shard the band over a TPU pod
+    # sf.mesh = make_mesh({"data": 4})  # row-shard the band over 4 GPUs
     sf.load_network(network_file=g, node_key_attribute="key")
     sf.load_attributes(attribute_file=attrs)
     sf.run_pipeline(num_permutations=500)   # one fused device dispatch
@@ -74,11 +74,10 @@ def main():
     print(f"top attributes: {int(sf.attributes['top'].sum())}")
 
     # Domain clustering also scales: above ~96 top attributes the jaccard
-    # linkage input comes from one MXU intersection GEMM (bit-identical to
-    # scipy's pdist, which alone takes HOURS at 100k x 4,373 — see
-    # docs/DESIGN.md "The domain stage on the MXU"); force with
-    # sf.cluster_engine = 'gemm'. The full workflow driver at 99,840 nodes
-    # is tools/tpu_full_downstream_100k.py.
+    # linkage input comes from one device intersection GEMM (bit-identical
+    # to scipy's pdist, which alone takes HOURS at 100k x 4,373 — see
+    # docs/DESIGN.md "The domain stage on the device"); force with
+    # sf.cluster_engine = 'gemm'.
     if int(sf.attributes["top"].sum()) >= 2:
         sf.define_domains()
         sf.trim_domains()

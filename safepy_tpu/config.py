@@ -38,7 +38,7 @@ class SafeConfig:
     view_name: Optional[str] = None
 
     node_key_attribute: str = "label_orf"
-    layout_algorithm: str = "spring_embedded"  # spring_embedded|kamada_kawai|spring_tpu
+    layout_algorithm: str = "spring_embedded"  # spring_embedded|kamada_kawai|spring_device
 
     attribute_sign: str = "both"  # highest | lowest | both
 

@@ -6,7 +6,7 @@ Reference semantics (safepy/safe_io.py:288-333):
     ``kamada_kawai`` -> ``nx.kamada_kawai_layout(G)``. Coordinates land in the 'x'
     and 'y' node attributes. NetworkX stays the engine for these so that seeded
     layouts agree with the reference bit-for-bit.
-  * ``spring_tpu`` (new) — the same Fruchterman-Reingold iteration scheme executed as
+  * ``spring_device`` (new) — the same Fruchterman-Reingold iteration scheme executed as
     dense JAX ops on the accelerator, for networks where the host layout becomes the
     bottleneck. Matches nx's dense implementation scheme (seeded uniform init,
     k=0.2, 100 iterations, linearly cooling temperature) but is NOT bit-identical.
@@ -33,10 +33,10 @@ def apply_network_layout(G, layout: str = "kamada_kawai", seed=None, verbose: bo
         if verbose:
             logging.info("Applying the spring-embedded network layout... (may take several minutes)")
         pos = nx.spring_layout(G, k=0.2, iterations=100, seed=seed)
-    elif layout == "spring_tpu":
+    elif layout == "spring_device":
         if verbose:
-            logging.info("Applying the TPU spring-embedded network layout...")
-        pos = spring_layout_tpu(G, k=0.2, iterations=100, seed=seed)
+            logging.info("Applying the device spring-embedded network layout...")
+        pos = spring_layout_device(G, k=0.2, iterations=100, seed=seed)
     else:
         raise ValueError(f"unknown layout: {layout!r}")
 
@@ -48,18 +48,18 @@ def apply_network_layout(G, layout: str = "kamada_kawai", seed=None, verbose: bo
 
 
 # above this many nodes the dense (N, N) force matrix stops paying (40 GB at
-# 100k) and spring_layout_tpu switches to the tiled engine below
+# 100k) and spring_layout_device switches to the tiled engine below
 DENSE_LAYOUT_MAX_NODES = 8192
 
 
-def spring_layout_tpu(G, k: float = 0.2, iterations: int = 100, seed=None,
+def spring_layout_device(G, k: float = 0.2, iterations: int = 100, seed=None,
                       method: str = "auto"):
     """Accelerator spring layout, mirroring networkx's method selection.
 
     ``method='auto'`` follows modern nx ``spring_layout``: classic
     Fruchterman-Reingold force iteration below 500 nodes, the integrated-
     energy minimizer at and above it (nx switched because the energy form
-    untangles far better — see :func:`spring_layout_energy_tpu`). 'force'
+    untangles far better — see :func:`spring_layout_energy_device`). 'force'
     and 'energy' select explicitly. The force path runs dense (N, N) up to
     ``DENSE_LAYOUT_MAX_NODES`` and the tiled sampled-repulsor variant above;
     the energy path is exact to 4096 nodes and sampled beyond. All scale to
@@ -79,10 +79,10 @@ def spring_layout_tpu(G, k: float = 0.2, iterations: int = 100, seed=None,
     if method == "auto":
         method = "force" if n < 500 else "energy"
     if method == "energy":
-        out = spring_layout_energy_tpu(n, edges, k=k,
+        out = spring_layout_energy_device(n, edges, k=k,
                                        iterations=10 * iterations, seed=seed)
     elif n > DENSE_LAYOUT_MAX_NODES:
-        out = spring_layout_tpu_tiled(n, edges, k=k, iterations=iterations,
+        out = spring_layout_device_tiled(n, edges, k=k, iterations=iterations,
                                       seed=seed)
     else:
         out = _spring_dense(n, edges, k=k, iterations=iterations, seed=seed)
@@ -124,7 +124,7 @@ def _spring_dense(n, edges, *, k, iterations, seed):
     return np.asarray(run(jnp.asarray(pos0), jnp.asarray(adj)))
 
 
-def spring_layout_tpu_tiled(n, edges, *, k: float = 0.2,
+def spring_layout_device_tiled(n, edges, *, k: float = 0.2,
                             iterations: int = 100, seed=None,
                             repulsors: int = 512):
     """O(N * M)-per-iteration Fruchterman-Reingold for band-storage-scale
@@ -183,7 +183,7 @@ def spring_layout_tpu_tiled(n, edges, *, k: float = 0.2,
     return np.asarray(run(jnp.asarray(pos0), key0))
 
 
-def spring_layout_energy_tpu(n, edges, *, k: float | None = None,
+def spring_layout_energy_device(n, edges, *, k: float | None = None,
                              iterations: int = 500, seed=None,
                              repulsors: int = 2048, gravity: float = 1.0,
                              weights=None, exact_max_nodes: int = 4096):

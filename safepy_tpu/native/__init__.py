@@ -1,7 +1,7 @@
 """Native host components, built lazily with the system toolchain.
 
 The only native piece the workload needs host-side is the edge-list parser (the
-accelerator kernels are Pallas — see ops/apsp_pallas.py). ``libedgelist.so`` is
+accelerator kernels are Pallas — see ops/minplus.py). ``libedgelist.so`` is
 compiled from ``edgelist.cpp`` with g++ on first use and cached next to the
 source; every consumer falls back to the pure-Python path when the toolchain or the
 build is unavailable, so the native layer is a pure accelerant.

@@ -1,10 +1,11 @@
 """Device core: pure JAX/Pallas functions on arrays.
 
 Everything between "dense adjacency + attribute matrix in" and "NES / p-value
-matrices out" lives here, jit-compiled for TPU:
+matrices out" lives here, jit-compiled for the GPU (or the CPU):
 
   * :mod:`safepy_tpu.ops.apsp` — all-pairs shortest paths (blocked min-plus
-    Floyd-Warshall; Pallas kernel on TPU, pure-jnp fallback elsewhere).
+    Floyd-Warshall; tile relaxations through :mod:`safepy_tpu.ops.minplus`,
+    a Triton-route Pallas kernel on the GPU, plain jnp on the CPU).
   * :mod:`safepy_tpu.ops.neighborhoods` — neighborhood indicator matrices for the
     three node-distance metrics of the reference (safepy/safe.py:369-430).
   * :mod:`safepy_tpu.ops.score` — neighborhood scores (sum / z-score) with explicit

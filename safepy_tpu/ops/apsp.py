@@ -3,15 +3,12 @@
 The reference computes neighborhoods with N sequential NetworkX Dijkstra runs
 (safepy/safe.py:406-410) — an interpreted host hot loop. Here the graph is a dense
 (N, N) distance-initialized matrix (inf off-edge, 0 diagonal, edge length on-edge) and
-APSP is tropical-semiring matrix algebra on the TPU VPU:
+APSP is tropical-semiring matrix algebra on the device:
 
-  * :func:`apsp` — public entry; dispatches to the Pallas blocked Floyd-Warshall
-    kernel on TPU (see ``apsp_pallas.py``) with a pure-jnp fallback for other
-    backends and as a small-size oracle.
-  * :func:`min_plus_product` — one min-plus matrix product (Pallas on TPU).
-  * repeated min-plus *squaring* (``D <- D (x) D``, log2(max_hops) times) and the
-    3-phase *blocked Floyd-Warshall* are both available; blocked FW does a single
-    O(N^3) pass and is the default on TPU.
+  * :func:`apsp` — public entry: panel-blocked Floyd-Warshall
+    (:func:`apsp_blocked_fw`) whose tile relaxations run through
+    ``ops/minplus.py``, or the textbook one-pivot-per-step FW as a small oracle.
+  * :func:`min_plus_product` — one min-plus matrix product.
 
 Semantics notes (parity with the reference):
   * unreachable pairs stay ``+inf`` — thresholding a full distance matrix at radius r
@@ -23,9 +20,12 @@ Semantics notes (parity with the reference):
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
-import numpy as np
+
+from safepy_tpu.ops import minplus
 
 
 def pad_distances(dist, block: int):
@@ -47,7 +47,7 @@ def pad_distances(dist, block: int):
 
 @jax.jit
 def _apsp_jax(dist):
-    """Textbook Floyd-Warshall, one k per step — the oracle / non-TPU fallback."""
+    """Textbook Floyd-Warshall, one pivot per step — a small-size oracle."""
     n = dist.shape[0]
 
     def body(k, d):
@@ -58,83 +58,77 @@ def _apsp_jax(dist):
     return jax.lax.fori_loop(0, n, body, dist)
 
 
-def min_plus_relax_jax(c, a, b):
-    """min(c, a (x) b) via a k-loop — the non-Pallas fallback, O(m n) memory.
-
-    Shared by the fallback product here and the sharded Floyd-Warshall's
-    off-TPU path (parallel/apsp_sharded.py).
-    """
-    m, k_dim = a.shape
-
-    def body(k, acc):
-        col = jax.lax.dynamic_slice(a, (0, k), (m, 1))
-        row = jax.lax.dynamic_slice(b, (k, 0), (1, b.shape[1]))
-        return jnp.minimum(acc, col + row)
-
-    return jax.lax.fori_loop(0, k_dim, body, c)
-
-
 @jax.jit
 def _min_plus_jax(a, b):
     init = jnp.full((a.shape[0], b.shape[1]), jnp.inf, a.dtype)
-    return min_plus_relax_jax(init, a, b)
+    return minplus.relax_jnp(init, a, b)
 
 
-def _on_tpu(x=None) -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
-def min_plus_product(a, b, *, method: str = "auto", block: int = 128):
+def min_plus_product(a, b):
     """(a (x) b)[i, j] = min_k a[i, k] + b[k, j]."""
-    if method == "auto":
-        method = "pallas" if _on_tpu() else "jax"
-    if method == "pallas":
-        from safepy_tpu.ops import apsp_pallas
-        return apsp_pallas.min_plus_pallas(a, b, block=block)
     return _min_plus_jax(jnp.asarray(a), jnp.asarray(b))
 
 
-def apsp(dist, *, method: str = "auto", block: int = 128,
-         max_hops: int | None = None, symmetric: bool = False):
+@functools.partial(jax.jit, static_argnames=("block", "symmetric", "impl"))
+def apsp_blocked_fw(dist, *, block: int = 128, symmetric: bool = False,
+                    impl: str = "jnp"):
+    """All-pairs shortest paths via panel-blocked Floyd-Warshall.
+
+    Per pivot round kb: (1) close the (T, T) diagonal tile, (2) relax the
+    pivot row panel P = D[kb] and column panel Q = D[:, kb] against it (valid
+    because the diagonal is closed), (3) relax the FULL matrix against
+    Q (x) P. Relaxation is idempotent in the tropical semiring, so phase 3
+    revisits the pivot panels harmlessly — one O(N^3) pass in all.
+
+    ``symmetric=True`` (callers must guarantee a symmetric ``dist`` —
+    undirected graphs) relaxes only each round's upper triangle and mirrors
+    the lower (:func:`minplus.relax_upper`) — bit-identical, ~2x less work.
+    """
+    dist = jnp.asarray(dist, jnp.float32)
+    n = dist.shape[0]
+    d = pad_distances(dist, block)
+    npad = d.shape[0]
+    nb = npad // block
+
+    def round_body(kb, d):
+        start = kb * block
+        p = jax.lax.dynamic_slice(d, (start, 0), (block, npad))
+        diag = jax.lax.dynamic_slice(p, (0, start), (block, block))
+        diag = minplus.close_tile(diag, impl=impl)
+        p = minplus.relax(p, diag, p, impl=impl)
+        q = jax.lax.dynamic_slice(d, (0, start), (npad, block))
+        q = minplus.relax(q, q, diag, impl=impl)
+        if symmetric:
+            return minplus.relax_upper(d, q, p, block=block, band_tiles=nb,
+                                       impl=impl)
+        return minplus.relax(d, q, p, impl=impl)
+
+    d = jax.lax.fori_loop(0, nb, round_body, d)
+    return d[:n, :n]
+
+
+def apsp(dist, *, method: str = "fw", impl: str | None = None,
+         block: int = 128, symmetric: bool = False):
     """All-pairs shortest path distances of a dense initialized distance matrix.
 
     Args:
       dist: (N, N) array — 0 diagonal, edge weight where an edge exists, inf
-        elsewhere. Any float dtype; compute happens in the input dtype on the jax
-        path and f32 on the Pallas path.
-      method: 'auto' (Pallas blocked FW on TPU, jnp elsewhere), 'pallas_fw',
-        'pallas_squaring', or 'jax'.
-      block: Pallas tile size.
-      max_hops: for the squaring method, an upper bound on the hop-diameter; default
-        N (always safe). Squaring runs ceil(log2(max_hops)) products.
+        elsewhere. 'fw' computes in f32; 'jax' in the input dtype.
+      method: 'fw' (blocked Floyd-Warshall) or 'jax' (textbook FW oracle).
+      impl: min-plus implementation (``ops/minplus.resolve``; default: the
+        platform's).
+      block: FW tile size.
       symmetric: the caller guarantees ``dist`` is symmetric (undirected
-        graph); the Pallas FW then computes only upper triangles and mirrors
-        (bit-identical, ~2x less VPU work).
+        graph); FW then relaxes only upper triangles and mirrors
+        (bit-identical, ~2x less work).
 
     Returns:
       (N, N) shortest-path distances, inf where unreachable.
     """
     dist = jnp.asarray(dist)
-    n = dist.shape[0]
-    if method == "auto":
-        method = "pallas_fw" if _on_tpu() else "jax"
-
     if method == "jax":
         return _apsp_jax(dist)
-
-    from safepy_tpu.ops import apsp_pallas
-
-    if method == "pallas_fw":
-        return apsp_pallas.apsp_blocked_fw(dist, block=block,
-                                           symmetric=symmetric)
-    if method == "pallas_squaring":
-        hops = int(max_hops) if max_hops is not None else n
-        n_sq = max(1, int(np.ceil(np.log2(max(2, hops)))))
-        d = pad_distances(dist.astype(jnp.float32), block)
-        for _ in range(n_sq):
-            d = apsp_pallas.min_plus_pallas(d, d, block=block)
-        return d[:n, :n]
+    if method == "fw":
+        return apsp_blocked_fw(dist, block=block, symmetric=symmetric,
+                               impl=minplus.resolve(impl))
     raise ValueError(f"unknown apsp method: {method!r}")

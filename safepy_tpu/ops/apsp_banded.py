@@ -37,8 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from safepy_tpu.ops import apsp_pallas
-from safepy_tpu.ops.apsp import min_plus_relax_jax as _relax_jnp, _on_tpu
+from safepy_tpu.ops import minplus
 
 
 def hilbert_order(coords: np.ndarray, bits: int = 16) -> np.ndarray:
@@ -206,25 +205,21 @@ def window_width(n: int, band: int, block: int = 128) -> int:
     return min(w, npad)
 
 
-@functools.partial(jax.jit, static_argnames=("block", "window", "use_pallas",
-                                             "symmetric"))
+@functools.partial(jax.jit, static_argnames=("block", "window", "impl"))
 def apsp_banded_fw(dist, *, window: int, block: int = 128,
-                   use_pallas: bool | None = None, symmetric: bool = True):
+                   impl: str | None = None):
     """Blocked FW restricted to a `window`-wide band around each pivot block.
 
     `dist` must already be permuted into the banded order and padded to a block
-    multiple (diagonal 0, inf elsewhere). Returns the same frame; entries are
-    exact for all pairs with true distance inside the certified radius and
-    upper bounds everywhere else. ``symmetric`` (Pallas path, default)
-    computes only each window's upper triangle and mirrors the lower —
-    bit-identical for the symmetric matrices undirected graphs produce
-    (apsp_pallas._relax_full_banded_sym: both pivot panels are the raw panel
-    relaxed once against the bitwise-symmetric closed diagonal, so q == p.T
-    exactly), ~1.9x less VPU min-plus work.
+    multiple (diagonal 0, inf elsewhere), and symmetric (undirected graphs).
+    Returns the same frame; entries are exact for all pairs with true
+    distance inside the certified radius and upper bounds everywhere else.
+    Each window relaxes only its upper triangle and mirrors the lower
+    (minplus.relax_upper: both pivot panels are the raw panel relaxed once
+    against the bitwise-symmetric closed diagonal, so q == p.T exactly) —
+    bit-identical to relaxing every in-band tile, ~1.9x less min-plus work.
     """
-    if use_pallas is None:
-        use_pallas = _on_tpu()
-
+    impl = minplus.resolve(impl)
     npad = dist.shape[0]
     nb = npad // block
     w = window
@@ -236,49 +231,29 @@ def apsp_banded_fw(dist, *, window: int, block: int = 128,
     # them drops ~25% of the window relaxation work.
     band_tiles = half // block + 3
 
-    if use_pallas:
-        relax_rows = functools.partial(apsp_pallas._relax_rows, block=block)
-        relax_cols = functools.partial(apsp_pallas._relax_cols, block=block)
-        relax_full = functools.partial(
-            apsp_pallas._relax_full_banded_sym if symmetric
-            else apsp_pallas._relax_full_banded,
-            block=block, band_tiles=band_tiles)
-    else:
-        relax_rows = lambda diag, panel: _relax_jnp(panel, diag, panel)
-        relax_cols = lambda panel, diag: _relax_jnp(panel, panel, diag)
-
-        def relax_full(q, p, d):
-            # mirror the pallas tile-skip so CPU tests validate its semantics
-            relaxed = _relax_jnp(d, q, p)
-            nb_side = d.shape[0] // block
-            tile_idx = jnp.arange(nb_side)
-            keep = (jnp.abs(tile_idx[:, None] - tile_idx[None, :])
-                    <= band_tiles)
-            keep = jnp.repeat(jnp.repeat(keep, block, axis=0), block, axis=1)
-            return jnp.where(keep, relaxed, d)
-
     def round_body(kb, d):
         start = kb * block
         lo = jnp.clip(start - half, 0, npad - w)
 
         p_win = jax.lax.dynamic_slice(d, (start, lo), (block, w))
         diag = jax.lax.dynamic_slice(d, (start, start), (block, block))
-        diag = apsp_pallas._close_diag(diag, block)
-        p_win = relax_rows(diag, p_win)
+        diag = minplus.close_tile(diag, impl=impl)
+        p_win = minplus.relax(p_win, diag, p_win, impl=impl)
 
         q_win = jax.lax.dynamic_slice(d, (lo, start), (w, block))
-        q_win = relax_cols(q_win, diag)
+        q_win = minplus.relax(q_win, q_win, diag, impl=impl)
 
         win = jax.lax.dynamic_slice(d, (lo, lo), (w, w))
-        win = relax_full(q_win, p_win, win)
+        win = minplus.relax_upper(win, q_win, p_win, block=block,
+                                  band_tiles=band_tiles, impl=impl)
         return jax.lax.dynamic_update_slice(d, win, (lo, lo))
 
     return jax.lax.fori_loop(0, nb, round_body, dist)
 
 
-@functools.partial(jax.jit, static_argnames=("window", "block"))
+@functools.partial(jax.jit, static_argnames=("window", "block", "impl"))
 def apsp_banded_unpermuted(d0_permuted, inv_rank, radius, *, window: int,
-                           block: int = 128):
+                           block: int = 128, impl: str | None = None):
     """Banded FW -> original node frame -> radius mask, one jittable unit.
 
     ``d0_permuted`` is either the dense (N, N) initialization in banded order,
@@ -299,12 +274,11 @@ def apsp_banded_unpermuted(d0_permuted, inv_rank, radius, *, window: int,
         d0_permuted = _initial_distances_jit(u, v, w,
                                              num_nodes=inv_rank.shape[0])
     d = _pad(jnp.asarray(d0_permuted, jnp.float32), block)
-    out = apsp_banded_fw(d, window=window, block=block)
+    out = apsp_banded_fw(d, window=window, block=block, impl=impl)
     n = inv_rank.shape[0]
     out = out[:n, :n]
-    # Un-permute with TWO row gathers around a transpose: a direct column
-    # gather ([:, inv]) is a lane-axis gather — measured ~67 s on an (20k)^2
-    # f32 on v5e, vs ~10 ms for row-gather+transpose (DMA-friendly).
+    # Un-permute with TWO row gathers around a transpose: each gather then
+    # moves whole contiguous rows instead of scattered columns.
     out = jnp.take(out, inv_rank, axis=0)
     out = jnp.take(out.T, inv_rank, axis=0).T
     return jnp.where(out <= jnp.asarray(radius, out.dtype), out, jnp.inf)

@@ -2,7 +2,7 @@
 
 ``ops/apsp_banded.py`` reduces the Floyd-Warshall *work* to O(N*W^2) by
 relaxing only a W-wide window around each pivot, but it still materializes the
-dense (N, N) matrix — HBM caps that path at ~20k nodes on one chip. This module
+dense (N, N) matrix, which caps that path on one device. This module
 removes the O(N^2) storage as well: the same radius certificate (every node of
 a <= r shortest path lies within Euclidean r — hence within index separation B
 in the banded order — of BOTH endpoints; see ops/apsp_banded.py) implies that
@@ -22,7 +22,7 @@ never branch at the edges. Memory O(N*W) instead of O(N^2): a 100k-node network
 with W ~ 6k holds 2.6 GB instead of 40 GB.
 
 Per pivot block K the standard 3-phase blocked FW round (see
-ops/apsp_pallas.apsp_blocked_fw) maps onto the skew:
+ops/apsp.apsp_blocked_fw) maps onto the skew:
 
   1. close the (b, b) diagonal tile — the pivot row's slab center, a STATIC
      column offset bt*b (the skew's first payoff);
@@ -34,8 +34,8 @@ ops/apsp_pallas.apsp_blocked_fw) maps onto the skew:
      (o = row offset, j = slab column tile) the three tiles of
      ``C = min(C, Q (x) P)`` sit at C = V[o, j], Q = V[o, 2bt - o] (the D[I, K]
      tile), P = P_ext[o + j] (the pivot slab inf-extended by bt tiles each
-     side) — all affine in the grid indices, so the Pallas kernel needs no
-     scalar prefetch and reuses the proven `_relax_kernel` tile product.
+     side) — all affine in the grid indices, so the min-plus kernel
+     (ops/minplus.relax_skew) needs no scalar prefetch.
 
 Entries are exact for every pair whose true distance is <= the certified
 radius and genuine-path upper bounds everywhere else, so thresholding the band
@@ -54,8 +54,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from safepy_tpu.ops.apsp import min_plus_relax_jax, _on_tpu
-from safepy_tpu.ops import apsp_pallas
+from safepy_tpu.ops import minplus
 
 _INF = float("inf")
 
@@ -100,7 +99,7 @@ def pack_band(dense, band: int, block: int = 128):
 
 
 # ---------------------------------------------------------------------------
-# Bit-packed indicator storage (round 3e)
+# Bit-packed indicator storage
 #
 # A 0/1 indicator band stores 8 columns per byte: uint8, LSB-first (bit j of
 # byte c is column 8*c + j — numpy's bitorder='little'). Packedness is keyed
@@ -108,7 +107,7 @@ def pack_band(dense, band: int, block: int = 128):
 # consumer (band_matmul*, band_row_stats, apply_compaction, BandedMatrix)
 # branches on it, so no caller threads an extra flag. The pack is an 8x lever
 # on the two largest tail buffers (the indicator band and its valid-column
-# compaction) AND on relay downloads; consumers unpack per (block, W) tile
+# compaction) AND on host downloads; consumers unpack per (block, W) tile
 # inside their contraction loops, where the transient is tile-sized.
 # ---------------------------------------------------------------------------
 
@@ -215,8 +214,8 @@ class BandedMatrix:
 
     def to_sparse(self):
         """scipy.sparse.csr_matrix of the finite / nonzero entries, original
-        frame. O(nnz) host memory; the band crosses the relay once (a
-        bit-packed indicator band crosses at 1 bit/cell)."""
+        frame. O(nnz) host memory; the band is downloaded once (a
+        bit-packed indicator band at 1 bit/cell)."""
         from scipy.sparse import coo_matrix
 
         s = np.asarray(self.data)
@@ -275,184 +274,23 @@ def band_init_from_edges(u, v, w, *, n: int, band: int, block: int = 128):
 
 
 # ---------------------------------------------------------------------------
-# The skewed window relaxation (phase 3)
-# ---------------------------------------------------------------------------
-
-def _relax_skew_pallas(win, p_ext, *, bt: int, block: int):
-    """min(C, Q (x) P) over the (W, W) skewed pivot window.
-
-    win[o, j] (tile indices) = D[K-bt+o, (K-2bt+o+j)*b tile]; Q for window row
-    o is the D[I, K] tile at slab position 2bt - o; the matching pivot-row tile
-    is p_ext[o + j]. All index maps are affine in the grid — no scalar prefetch.
-
-    Tiles with |o + j - 2bt| > bt relax against a provably-+inf pivot-row tile
-    (the absolute column J = K + o + j - 2bt is outside P's stored slab), so
-    the kernel passes them through untouched — ~25% of the window's work.
-    """
-    nt = 2 * bt + 1
-
-    def kernel(a_ref, b_ref, c_ref, o_ref):
-        o = apsp_pallas.pl.program_id(0)
-        j = apsp_pallas.pl.program_id(1)
-        offset = o + j - 2 * bt
-        in_band = (offset <= bt) & (offset >= -bt)
-
-        @apsp_pallas.pl.when(in_band)
-        def _():
-            o_ref[:] = apsp_pallas._tile_minplus(c_ref[:], a_ref[:], b_ref[:],
-                                                 block)
-
-        @apsp_pallas.pl.when(jnp.logical_not(in_band))
-        def _():
-            o_ref[:] = c_ref[:]
-
-    return apsp_pallas.pl.pallas_call(
-        kernel,
-        grid=(nt, nt),
-        in_specs=[
-            apsp_pallas.pl.BlockSpec((block, block),
-                                     lambda o, j: (o, 2 * bt - o + j * 0)),
-            apsp_pallas.pl.BlockSpec((block, block),
-                                     lambda o, j: (o * 0, o + j)),
-            apsp_pallas.pl.BlockSpec((block, block), lambda o, j: (o, j)),
-        ],
-        out_specs=apsp_pallas.pl.BlockSpec((block, block), lambda o, j: (o, j)),
-        out_shape=jax.ShapeDtypeStruct(win.shape, jnp.float32),
-    )(win, p_ext, win)
-
-
-def _relax_skew_sym_pallas(win, p_ext, *, bt: int, block: int):
-    """Symmetric window relax: compute the upper wedge, mirror the lower.
-
-    The band holds a SYMMETRIC distance matrix (undirected graphs —
-    reference safe.py:403-410), and min-plus relaxation preserves symmetry:
-    with D[J,K] = D[K,J]^T, the lower-triangle update
-    ``min(C[J,I], D[J,K] (x) D[K,I])`` equals the transpose of the upper
-    update ``min(C[I,J], D[I,K] (x) D[K,J])``. A window tile (o, j) sits at
-    diagonal offset ``j - bt`` (its mirror is (o + j - bt, 2*bt - j)), so:
-
-      * pass A computes only tiles j >= bt (upper wedge incl. the diagonal
-        line) — 477 vs 919 relaxed tiles at bt=17, a ~1.9x cut of the VPU
-        min-plus work that dominates the whole engine; tiles beyond the
-        pivot slab (o + j > 3*bt) pass through exactly as in
-        :func:`_relax_skew_pallas`;
-      * pass B fills j < bt: in-band tiles (o + j >= bt) as the TRANSPOSE of
-        their pass-A mirror, out-of-band tiles as the original passthrough.
-        Pass B aliases pass A's buffer (it writes only j < bt and reads only
-        j > bt mirrors — no read/write overlap).
-    """
-    nt = 2 * bt + 1
-
-    def kernel_a(a_ref, b_ref, c_ref, o_ref):
-        o = apsp_pallas.pl.program_id(0)
-        jj = apsp_pallas.pl.program_id(1)
-        compute = o + jj <= 2 * bt   # P tile beyond the pivot slab otherwise
-
-        @apsp_pallas.pl.when(compute)
-        def _():
-            o_ref[:] = apsp_pallas._tile_minplus(c_ref[:], a_ref[:], b_ref[:],
-                                                 block)
-
-        @apsp_pallas.pl.when(jnp.logical_not(compute))
-        def _():
-            o_ref[:] = c_ref[:]
-
-    upper = apsp_pallas.pl.pallas_call(
-        kernel_a,
-        grid=(nt, bt + 1),
-        in_specs=[
-            apsp_pallas.pl.BlockSpec((block, block),
-                                     lambda o, jj: (o, 2 * bt - o + jj * 0)),
-            apsp_pallas.pl.BlockSpec((block, block),
-                                     lambda o, jj: (o * 0, o + bt + jj)),
-            apsp_pallas.pl.BlockSpec((block, block),
-                                     lambda o, jj: (o, bt + jj)),
-        ],
-        out_specs=apsp_pallas.pl.BlockSpec((block, block),
-                                           lambda o, jj: (o, bt + jj)),
-        out_shape=jax.ShapeDtypeStruct(win.shape, jnp.float32),
-    )(win, p_ext, win)
-
-    def kernel_b(u_ref, v_ref, o_ref):
-        o = apsp_pallas.pl.program_id(0)
-        jj = apsp_pallas.pl.program_id(1)
-        in_band = o + jj >= bt
-
-        @apsp_pallas.pl.when(in_band)
-        def _():
-            o_ref[:] = u_ref[:].T
-
-        @apsp_pallas.pl.when(jnp.logical_not(in_band))
-        def _():
-            o_ref[:] = v_ref[:]
-
-    def _mirror_row(o, jj):
-        m = o + jj - bt
-        return jnp.maximum(m, 0)  # clamped for out-of-band cells (unused read)
-
-    return apsp_pallas.pl.pallas_call(
-        kernel_b,
-        grid=(nt, bt),
-        in_specs=[
-            apsp_pallas.pl.BlockSpec((block, block),
-                                     lambda o, jj: (_mirror_row(o, jj),
-                                                    2 * bt - jj)),
-            apsp_pallas.pl.BlockSpec((block, block), lambda o, jj: (o, jj)),
-        ],
-        out_specs=apsp_pallas.pl.BlockSpec((block, block),
-                                           lambda o, jj: (o, jj)),
-        out_shape=jax.ShapeDtypeStruct(win.shape, jnp.float32),
-        input_output_aliases={0: 0},
-    )(upper, win)
-
-
-def _relax_skew_jnp(win, p_ext, *, bt: int, block: int):
-    """jnp fallback mirroring the Pallas tile maps (CPU tests / other backends)."""
-    nt = 2 * bt + 1
-    w = nt * block
-
-    def row_body(o, acc):
-        c = jax.lax.dynamic_slice(acc, (o * block, 0), (block, w))
-        q = jax.lax.dynamic_slice(acc, (o * block, (2 * bt - o) * block),
-                                  (block, block))
-        p = jax.lax.dynamic_slice(p_ext, (0, o * block), (block, w))
-        c = min_plus_relax_jax(c, q, p)
-        return jax.lax.dynamic_update_slice(acc, c, (o * block, 0))
-
-    return jax.lax.fori_loop(0, nt, row_body, win)
-
-
-# ---------------------------------------------------------------------------
 # Band-storage blocked Floyd-Warshall
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("bt", "block", "use_pallas",
-                                             "symmetric"))
-def apsp_band_fw(s, *, bt: int, block: int = 128,
-                 use_pallas: bool | None = None, symmetric: bool = True):
+@functools.partial(jax.jit, static_argnames=("bt", "block", "impl"))
+def apsp_band_fw(s, *, bt: int, block: int = 128, impl: str | None = None):
     """Blocked Floyd-Warshall over skewed band storage (see module docstring).
 
     ``s``: ((nb + 2*bt)*b, (2*bt+1)*b) f32 from :func:`band_init_from_edges` /
-    :func:`pack_band`. Returns the same frame with in-band entries exact for
-    every pair whose true distance is within the certified radius.
-    ``symmetric`` (Pallas path, default) computes only the window's upper
-    wedge and mirrors the lower (:func:`_relax_skew_sym_pallas`) — ~1.9x less
-    min-plus work, measured 1.52x end-to-end on v5e (29,952 nodes: 0.44 ->
-    0.29 s; 99,840: 3.64 -> 2.40 s; thresholded indicator bit-identical,
-    tools/tpu_symfw_bench.py).
+    :func:`pack_band`, holding a symmetric matrix (undirected graphs —
+    reference safe.py:403-410). Returns the same frame with in-band entries
+    exact for every pair whose true distance is within the certified radius.
+    Each pivot window relaxes only its upper wedge and mirrors the lower
+    (:func:`minplus.relax_skew`) — ~1.9x less min-plus work than the whole
+    window; the mirror swaps which operand saw the phase-2-relaxed pivot row,
+    so entries agree with the whole-window relax to f32 association noise.
     """
-    if use_pallas is None:
-        use_pallas = _on_tpu()
-    if use_pallas:
-        relax_skew = (_relax_skew_sym_pallas if symmetric
-                      else _relax_skew_pallas)
-    else:
-        relax_skew = _relax_skew_jnp
-    relax_rows = (functools.partial(apsp_pallas._relax_rows, block=block)
-                  if use_pallas
-                  else (lambda diag, panel: min_plus_relax_jax(panel, diag,
-                                                               panel)))
-
+    impl = minplus.resolve(impl)
     width = s.shape[1]
     nb = s.shape[0] // block - 2 * bt
 
@@ -460,16 +298,50 @@ def apsp_band_fw(s, *, bt: int, block: int = 128,
         kg = kb + bt
         p = jax.lax.dynamic_slice(s, (kg * block, 0), (block, width))
         diag = jax.lax.dynamic_slice(p, (0, bt * block), (block, block))
-        diag = apsp_pallas._close_diag(diag, block)
+        diag = minplus.close_tile(diag, impl=impl)
         p = jax.lax.dynamic_update_slice(p, diag, (0, bt * block))
-        p = relax_rows(diag, p)
+        p = minplus.relax(p, diag, p, impl=impl)
         s = jax.lax.dynamic_update_slice(s, p, (kg * block, 0))
 
         p_ext = jnp.pad(p, ((0, 0), (bt * block, bt * block)),
                         constant_values=_INF)
         win = jax.lax.dynamic_slice(s, ((kg - bt) * block, 0), (width, width))
-        win = relax_skew(win, p_ext, bt=bt, block=block)
+        win = minplus.relax_skew(win, p_ext, bt=bt, block=block, impl=impl)
         return jax.lax.dynamic_update_slice(s, win, ((kg - bt) * block, 0))
+
+    return jax.lax.fori_loop(0, nb, round_body, s)
+
+
+@functools.partial(jax.jit, static_argnames=("bt", "block"))
+def apsp_band_fw_whole(s, *, bt: int, block: int = 128):
+    """Whole-window (non-mirrored) band FW in plain jnp: every in-band tile
+    of every pivot window is relaxed — the reference the row-sharded band
+    engine (parallel/band_sharded.py) matches bit for bit."""
+    width = s.shape[1]
+    nb = s.shape[0] // block - 2 * bt
+    nt = 2 * bt + 1
+
+    def round_body(kb, s):
+        kg = kb + bt
+        p = jax.lax.dynamic_slice(s, (kg * block, 0), (block, width))
+        diag = jax.lax.dynamic_slice(p, (0, bt * block), (block, block))
+        diag = minplus.close_tile(diag, impl="jnp")
+        p = jax.lax.dynamic_update_slice(p, diag, (0, bt * block))
+        p = minplus.relax_jnp(p, diag, p)
+        s = jax.lax.dynamic_update_slice(s, p, (kg * block, 0))
+        p_ext = jnp.pad(p, ((0, 0), (bt * block, bt * block)),
+                        constant_values=_INF)
+
+        def row_body(o, s):
+            row = (kg - bt + o) * block
+            c = jax.lax.dynamic_slice(s, (row, 0), (block, width))
+            q = jax.lax.dynamic_slice(c, (0, (2 * bt - o) * block),
+                                      (block, block))
+            pw = jax.lax.dynamic_slice(p_ext, (0, o * block), (block, width))
+            return jax.lax.dynamic_update_slice(
+                s, minplus.relax_jnp(c, q, pw), (row, 0))
+
+        return jax.lax.fori_loop(0, nt, row_body, s)
 
     return jax.lax.fori_loop(0, nb, round_body, s)
 
@@ -619,20 +491,27 @@ def apsp_band_bf(s, nbr, dlt, wgt, clamp, *, bt: int, block: int = 128,
     return s, jnp.logical_not(changed), iters
 
 
+#: relative cost of one byte a BF round moves and one FW min-plus op; the
+#: value predates the GPU port and is not yet re-measured on it (ROADMAP.md)
+BF_BYTE_PER_FW_OP = 0.95
+
+
 def bf_max_iters(n: int, band: int, S: int, block: int = 128,
                  floor: int = 16, cap: int = 512) -> int:
     """Iteration budget at which BF has spent ~one FW's worth of time.
 
-    FW runs ~in-band (2bt+1)^2 tiles x 2*block^3 VPU ops per round at the
-    measured 0.76 T/s issue ceiling; one BF round moves ~2 reads + 1 write of
-    S gathered (npad, W) slabs at ~0.8 TB/s. Capping BF's rounds at their
-    ratio bounds the worst (non-converging, fall-back-to-FW) case at ~2x FW
-    while leaving geometric/hop networks (L ~ 10-20) far below the cap.
+    FW runs ~in-band (2bt+1)^2 tiles x 2*block^3 min-plus ops per round; one
+    BF round moves ~2 reads + 1 write of S gathered (npad, W) slabs. With
+    :data:`BF_BYTE_PER_FW_OP` the cost of a moved BF byte relative to a FW
+    op, capping BF's rounds at their ratio bounds the worst
+    (non-converging, fall-back-to-FW) case at ~2x FW while leaving
+    geometric/hop networks (L ~ 10-20) far below the cap.
     """
     bt, nb, width = band_params(n, band, block)
-    fw_s = 0.75 * (2 * bt + 1) ** 2 * nb * 2 * block ** 3 / 0.76e12
-    iter_s = 3 * S * nb * block * width * 4 / 0.8e12
-    return int(np.clip(fw_s / max(iter_s, 1e-12), floor, cap))
+    fw_ops = 0.75 * (2 * bt + 1) ** 2 * nb * 2 * block ** 3
+    iter_bytes = 3 * S * nb * block * width * 4
+    return int(np.clip(fw_ops / max(BF_BYTE_PER_FW_OP * iter_bytes, 1e-12),
+                       floor, cap))
 
 
 # ---------------------------------------------------------------------------
@@ -706,8 +585,7 @@ def euclidean_band_indicator(coords_perm, radius, *, n: int, band: int,
     Bit-identical to ``euclidean_band_distances(...) < radius`` (pinned in
     tests), but the loop carry is the 1-byte indicator instead of the 4-byte
     distance band — the f32 band never exists, so the euclidean pipelines
-    with ``keep_distances=False`` peak at ~1/4 the HBM (the scatter/UMAP
-    ceiling moves from ~300k to ~1M points on one 16 GB v5e; reference
+    with ``keep_distances=False`` peak at ~1/4 the device memory (reference
     safe.py:389-399 serves this metric from a dense host pdist).
 
     ``packed=True`` packs each block-row's indicator to uint8 bits as it is
@@ -806,7 +684,7 @@ def band_matmul(s_ind, x, *, bt: int, block: int = 128,
     row frame (npad = nb*b, zero-padded). Returns (npad, A).
 
     Per block-row I the stored slab covers exactly rows [(I-bt)*b, (I+bt+1)*b)
-    of x, so the product is nb MXU matmuls of (b, W) x (W, A) — O(N*W*A) work,
+    of x, so the product is nb GEMMs of (b, W) x (W, A) — O(N*W*A) work,
     the banded analog of the reference's census/score GEMMs (safe.py:593,
     safe_extras.py:15).
     """
@@ -941,10 +819,10 @@ def compaction_plan(valid, *, n: int, bt: int, block: int = 128):
     return np.asarray(starts, np.int64), w_c
 
 
-# Block-rows per compaction-sort chunk. TPU lowers the STABLE variadic sort
+# Block-rows per compaction-sort chunk. A STABLE variadic sort may be lowered
 # with an s32 iota tiebreaker operand the full size of the sorted array —
 # 4 bytes/cell against the 1-byte indicator, 10.7 GB at 349,440 nodes /
-# 125-node neighborhoods (measured, the band tail's OOM at that scale).
+# 125-node neighborhoods.
 # Chunking the row-independent sort over block-row slices shrinks the iota
 # and the key/masked temporaries to chunk size with bit-identical results;
 # bands at or under the chunk take the original single-sort path untouched.
@@ -1001,8 +879,8 @@ def apply_compaction(s_ind, valid, w_c: int, *, bt: int, block: int = 128,
     def keys_for(blk0, nblk):
         # int8 keys AND int8 sort values: the materialized arrays scale with
         # the sorted slice, so dtype is a 4x lever on the compaction's peak
-        # HBM (the indicator is 0/1; only the final w_c-wide compacted slice
-        # returns to f32 for the MXU)
+        # memory (the indicator is 0/1; only the final w_c-wide compacted
+        # slice returns to f32 for the GEMM)
         cols = ((off + blk0 + jnp.arange(nblk, dtype=jnp.int32)[:, None]
                  - 2 * bt) * block
                 + jnp.arange(width, dtype=jnp.int32)[None, :]) + pad

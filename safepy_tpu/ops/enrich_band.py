@@ -154,8 +154,8 @@ def hypergeom_core_band(s_ind, nan0, nodes_not_nan, K, lgt, M,
     (N, A) matrix) so only one chunk's f64 tail intermediates are live.
 
     Returns (logsf32, bin8) — NES is elementwise-derivable (-logsf/ln10)
-    and the second (n, A) f32 buffer is what tips the 16 GB chip at
-    199,680 x 4,373; the facade derives it lazily on access.
+    and a second (n, A) f32 buffer would double the output footprint; the
+    facade derives it lazily on access.
     """
     npad = s_ind.shape[0] - 2 * bt * block
     nan0 = jnp.asarray(nan0, jnp.float32)
@@ -259,7 +259,7 @@ def hypergeom_band_hostchunks(s_ind, nan0_np, nodes_not_nan_np, lgt, M,
         variants thanks to power-of-two iteration buckets), with the
         row-unpermute fused into each chunk;
       * reassembles on device: concat + the transpose/row-gather/transpose
-        column permutation (lane gathers serialize on TPU; row gathers DMA).
+        column permutation (row gathers move contiguous rows).
 
     Returns (logsf_dev, bin_dev, counts_np) with columns in the ORIGINAL
     attribute order and rows in the ORIGINAL node frame (NES derives
@@ -308,8 +308,8 @@ def hypergeom_band_hostchunks(s_ind, nan0_np, nodes_not_nan_np, lgt, M,
     def assemble(pieces):
         sorted_cols = jnp.concatenate(pieces, axis=1)
         pieces.clear()
-        # column permutation via transpose + ROW gather + transpose (lane
-        # gathers serialize on TPU; row gathers ride the DMA engines)
+        # column permutation via transpose + ROW gather + transpose (a row
+        # gather moves contiguous rows, a column gather scattered words)
         return jnp.take(sorted_cols.T, inv_dev, axis=0).T
 
     logsf = assemble(logsf_pieces)
@@ -368,9 +368,7 @@ def band_hyper_operands_chunked(n2a_np, order, chunk_cols: int = 512):
 
     The full-device variant's jit peak is ~10 (N, A)-cells of HBM (the f32
     upload + the f32 nan0, which XLA materializes for its two consumers, +
-    the int8 nan0 + the row-gather output): measured 349,440 x 4,373 fits
-    (15.3 GB) while 399,360 x 4,373 OOM'd inside the prep
-    (tools/r5_results.log 21:39, the r5d guardfail demo). This variant
+    the int8 nan0 + the row-gather output). This variant
     peaks at ~2 cells (the donated int8 accumulator + the gather output)
     plus one f32 chunk: each (N, chunk) f32 column chunk is uploaded,
     folded into the int8 buffer by :func:`_prep_chunk_step` (donated — XLA
@@ -441,7 +439,7 @@ def hypergeom_band_table(s_ind, nan0_np, nodes_not_nan_np, M,
     (ops/hypergeom_table.py) — the production path for binary annotations.
 
     Replaces the per-cell f64 tail of :func:`hypergeom_band_hostchunks`
-    (235 s at 99,840 x 4,373 on v5e) with one f64 recurrence per distinct
+    with one f64 recurrence per distinct
     (K, neighborhood-size) class plus one table gather per cell. Column
     chunks are K-sorted so each chunk's scan length hugs its largest class.
 
@@ -449,12 +447,12 @@ def hypergeom_band_table(s_ind, nan0_np, nodes_not_nan_np, M,
     order and rows in the ORIGINAL node frame, or None when the plan is
     ineligible (caller falls back to the loop engine). NES is NOT
     materialized: it is elementwise-derivable (-logsf/ln10) and a second
-    (n, A) f32 buffer is exactly what tips the chip at 199,680 x 4,373
-    (tools/r4_results.log) — the facade derives it lazily on access.
+    (n, A) f32 buffer doubles the output footprint — the facade derives it
+    lazily on access.
 
     ``logsf_out`` controls the RESIDENCY of the (n, A) outputs — the f32
-    log-survival whale (6.1 GB at 349,440 x 4,373) is what OOM'd the
-    single-chip census wall (VERDICT r4 weak #1, tools/r4e2_results.log):
+    log-survival whale (6.1 GB at 349,440 x 4,373) is the largest census
+    resident:
 
       * ``'device'`` — f32 logsf + int8 indicator on device (the default);
       * ``'f16'``    — logsf stored f16 on device (half the whale; the
@@ -462,7 +460,7 @@ def hypergeom_band_table(s_ind, nan0_np, nodes_not_nan_np, M,
         exact — only the stored log-p loses ~2^-11 relative);
       * ``'host'``   — each chunk's f32 logsf/indicator columns stream to
         host numpy buffers (bit-equal to 'device'); nothing (n, A)-sized
-        stays on device. Costs one (n, A) relay download per run.
+        stays on device. Costs one (n, A) host download per run.
       * ``'auto'``   — the AUTHORITATIVE selection: once the chunk plan
         exists the true class-table bytes are known, so (mode, group) is
         chosen here by hbm.census_select against ``budget`` — the facade's
@@ -471,8 +469,7 @@ def hypergeom_band_table(s_ind, nan0_np, nodes_not_nan_np, M,
 
     ``lookup_group``: the slot-loop unroll depth (int), or 'auto' to let
     census_select pick it — XLA keeps ``group`` (n, chunk) f32 gather
-    outputs live per lookup step, the term that OOM'd 399,360 x 4,373 @80
-    under the old always-8 behavior (tools/r5f_results.log 02:17).
+    outputs live per lookup step, a term of the census peak.
 
     ``extra_resident_bytes``: caller-owned device residents the selection
     must account for (e.g. a kept f32 distance band).
@@ -486,7 +483,7 @@ def hypergeom_band_table(s_ind, nan0_np, nodes_not_nan_np, M,
     ``K_np``: the per-attribute annotated totals if the caller already has
     them (the facade's operand cache does) — recomputing here would
     materialize a full f32 copy of the int8 annotations as an eager
-    astype (4 B/cell: 6.98 GB at 399,360 x 4,373) right when the chip is
+    astype (4 B/cell: 6.98 GB at 399,360 x 4,373) right when the device is
     fullest; the fallback sums in column chunks instead.
     """
     import numpy as np
@@ -548,8 +545,8 @@ def hypergeom_band_table(s_ind, nan0_np, nodes_not_nan_np, M,
     # chunks stream into preallocated outputs with DONATED buffers ('host':
     # numpy buffers, no device preallocation at all): the only (n, A)-sized
     # device arrays alive are the outputs (if device-resident) plus the
-    # (int8) annotation matrix — at 100k x 4,373 any transient second copy
-    # tips the chip into allocator thrash
+    # (int8) annotation matrix — at 100k x 4,373 a transient second copy
+    # is GBs
     host = logsf_out == "host"
     if host:
         logsf = np.empty((n, n_attrs), np.float32)

@@ -55,10 +55,8 @@ def _bh_logsf_rows(logsf, log_threshold):
     BH's ``p * m / rank`` scaling and reversed cumulative minimum are
     monotone under ``log``, so the whole step-up procedure runs in log
     space: ``adj_log = min(0, revcummin(logp + log(m) - log(rank)))``.
-    This matters on this TPU, where device f64 ``exp`` holds only ~2^-12
-    relative and underflows below the f32 range (ops/hypergeom.py) — the
-    linear-space :func:`fdr_bh` would corrupt small p-values if fed
-    device-exp'd inputs. ``-inf`` log-p (exact p = 0, the 'above' branch of
+    No device f64 ``exp`` is trusted (ops/hypergeom.py) — the linear-space
+    :func:`fdr_bh` would need p-values exp'd on the device. ``-inf`` log-p (exact p = 0, the 'above' branch of
     the survival finalization) flows through exactly: it sorts first and
     stays ``-inf`` after adjustment, like statsmodels' 0.0.
 

@@ -1,4 +1,4 @@
-"""Vectorized hypergeometric survival function for TPU.
+"""Vectorized hypergeometric survival function on the device.
 
 Replaces the elementwise SciPy call of the reference
 (``hypergeom.sf(k - 1, M, K, n)`` at safepy/safe.py:596) with a fully vectorized,
@@ -6,13 +6,12 @@ jit-compiled tail sum that meets <=1e-6 absolute p-value parity with SciPy.
 
 Numerical design
 ----------------
-TPU is f32-first, but ``lgamma`` of factorial-scale arguments in f32 would lose ~1e-3
-absolute on the log — fatal for 1e-6 p-value parity. Instead of evaluating ``lgamma``
-per term on device:
+The device core is f32-first, but ``lgamma`` of factorial-scale arguments in f32
+would lose ~1e-3 absolute on the log — fatal for 1e-6 p-value parity. Instead of
+evaluating ``lgamma`` per term on device:
 
   * the single *leading* log-pmf per cell is assembled in f64 from a host-precomputed
-    ``lgamma(x + 1)`` table (six gathers + adds; f64 adds are cheap even where f64 is
-    software-emulated),
+    ``lgamma(x + 1)`` table (six gathers + adds),
   * the rest of the tail is accumulated with the exact pmf *ratio recurrence*
 
         pmf(t+1)/pmf(t) = (K - t)(n - t) / ((t + 1)(M - K - n + t + 1))
@@ -61,10 +60,10 @@ def _sf_parts(k, M, K, n, lgt, iterations: int):
 
     Returns ``(log_pmf0, acc, use_upper, lower, upper)`` — everything needed to
     finalize ``sf = exp(log_pmf0) * acc`` (upper branch) or ``1 - exp(...) * acc``
-    (complement branch). The final transcendentals stay OFF the device on purpose:
-    the TPU's software-emulated f64 ``exp`` loses ~2.7e-4 relative when fused into a
-    larger computation (measured on v5e), far beyond the 1e-6 parity budget, while
-    the adds/mults/divides used here hold ~1e-13.
+    (complement branch). The final transcendentals stay OFF the device on purpose,
+    so p-values never depend on a device f64 ``exp`` (whether the GPU's can take
+    them over is open, ROADMAP.md Design 6); the adds/mults/divides used here hold
+    ~1e-13.
 
     k, K, n are f64 arrays of integer values (any mutually broadcastable shapes);
     M is a scalar; lgt is the f64 lgamma table covering [0, M].
@@ -100,8 +99,8 @@ def _sf_parts(k, M, K, n, lgt, iterations: int):
 
     # Ratio recurrences (all operands are exact small integers in f64). The
     # branch select happens on the small integer products BEFORE the division:
-    # f64 division is software-emulated on TPU and dominates the loop, so one
-    # selected divide beats two branch divides merged by a where.
+    # f64 division dominates the loop, so one selected divide beats two
+    # branch divides merged by a where.
     def ratio(t):
         num = jnp.where(use_upper, (K - t) * (n - t),
                         t * (M - K - n + t))
@@ -113,8 +112,8 @@ def _sf_parts(k, M, K, n, lgt, iterations: int):
     # largest live term bounds everything still to come: once it drops below
     # 1e-18 the truncation error is < support * 1e-18 ~ 1e-14 relative. The
     # static `iterations` bound covers the worst cell; most inputs exit the
-    # while_loop after ~half of it (the f64 loop is software-emulated on TPU —
-    # every skipped iteration is real time).
+    # while_loop after ~half of it (every skipped f64 iteration is real
+    # time).
     def cond(carry):
         i, _acc, term, _t = carry
         return jnp.logical_and(i < iterations, jnp.max(term) > 1e-18)
@@ -193,9 +192,8 @@ def _host_nes(parts):
 def finalize_logsf_device(parts, enrichment_threshold):
     """Device-side finalization to (nes_f32, log_sf_f32, nes_binary_int8).
 
-    Safe-on-TPU recipe: the emulated f64 ``exp`` underflows at the f32 boundary
-    (measured: exp(x) == 0 for x < ~-88, and only ~2^-12 relative accuracy above
-    it), while f64 ``log`` holds ~1e-12 — so the upper-branch log-survival
+    No device f64 ``exp`` is trusted (ROADMAP.md Design 6), while f64 ``log``
+    holds ~1e-12 — so the upper-branch log-survival
     ``lp0 + log(acc)`` stays f64-exact on device, the complement branch's
     moderate-argument ``exp`` runs in f32 (relative error ~1e-7 on a tail bounded
     away from the extremes), and the caller recovers p-values HOST-side as

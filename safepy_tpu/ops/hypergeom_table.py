@@ -3,8 +3,8 @@
 The reference computes ``hypergeom.sf(k-1, M, K, n)`` for every (neighborhood,
 attribute) cell (safepy/safe.py:596); ``ops/hypergeom.py`` vectorizes that as a
 per-cell f64 tail recurrence. At GO scale (100k neighborhoods x 4,373 terms =
-4.4e8 cells) the emulated-f64 tail loop dominates the whole pipeline (235 s
-measured on v5e) — yet for BINARY annotations every operand is a small integer,
+4.4e8 cells) the f64 tail loop dominates the whole pipeline — yet for BINARY
+annotations every operand is a small integer,
 and the cells collapse onto a tiny set of distinct classes:
 
     sf(k; M, K, n)  depends only on  (k, K, n)  with M fixed,
@@ -16,13 +16,11 @@ cells x ~10^2 tail iterations. The engine:
   1. builds the table with ONE downward f64 recurrence per class —
      ``T(t) = 1 + rho(t) * T(t+1)`` where ``rho(t) = pmf(t+1)/pmf(t)`` is an
      exact small-integer ratio, anchored at ``log pmf(hi)`` from a gather-free
-     Stirling series (measured on v5e: f64 div 7.8 G/s, f64 log 2.3 G/s, but
-     lgamma-table gathers only 0.047 G/s — the recurrence + Stirling form is
-     the one that keeps the build under a second);
-  2. resolves every cell with ONE 1D table gather (measured 0.08-0.13 G
-     lookups/s on v5e — the gather IS the cost, so the binary-significance bit
-     rides the same f32 value via a one-ulp threshold nudge instead of a
-     second gather).
+     Stirling series (arithmetic instead of lgamma-table gathers, which are
+     far slower than f64 divides and logs);
+  2. resolves every cell with ONE 1D table gather (the gather is the cost,
+     so the binary-significance bit rides the same f32 value via a one-ulp
+     threshold nudge instead of a second gather).
 
 Precision: the table is f64 end to end (recurrence error ~1e-10, Stirling
 anchor ~5e-9 absolute in log p) and rounds once to f32 on store — the same
@@ -85,7 +83,7 @@ def table_geometry(K_values, n_max: int, M: int):
         r *= 2
     k_max = int(max(1, np.max(K_values))) if len(K_values) else 1
     # power-of-two S_max: every distinct (R, S_max, C) triple is a separate
-    # compiled program, and remote TPU compiles cost 1 s-10 min each — the
+    # compiled program, and each compile costs seconds — the
     # padded slots are sentinel-filled and never looked up (k <= true support)
     s_max = 64
     while s_max < int(min(k_max, n_max) + 2):
@@ -178,10 +176,11 @@ def build_logsf_table(K_dist, M, log_thr, *, R: int, S_max: int, C: int):
     return table                                              # (S_max, C, R)
 
 
-# slot-loop engine selection: per-cell 1-D gathers run 0.08-0.13 G/s on v5e
-# (serialized on the VPU), so above this many cells the slot loop — S_max
-# bandwidth-bound (N, A) select-accumulate sweeps — is the faster resolve as
-# long as S_max stays moderate. Crossover measured on v5e GO-scale chunks.
+# slot-loop engine selection: per-cell 1-D gathers are slow, so above this
+# many cells the slot loop — S_max bandwidth-bound (N, A) select-accumulate
+# sweeps — is the faster resolve as long as S_max stays moderate. The
+# crossover keeps the value it had before the GPU port; not yet re-measured
+# on the GPU (ROADMAP.md).
 LOOKUP_LOOP_MIN_CELLS = 2 ** 22
 LOOKUP_LOOP_MAX_SMAX = 1024
 
@@ -197,10 +196,8 @@ def table_lookup(table, counts, nsize, colc, log_thr32, *, S_max: int,
 
     Two exact engines behind one signature, chosen at trace time from the
     static shapes: small surfaces use ONE per-cell 1-D gather; large surfaces
-    (>= LOOKUP_LOOP_MIN_CELLS) use the slot loop, which replaces 0.08-0.13 G/s
-    serialized gathers with S_max bandwidth-bound masked sweeps (measured
-    3.0x on the 99,840 x 4,373 GO lookup phase on v5e: 6.3 s -> 2.14 s,
-    tools/tpu_bandgo_phases.py).
+    (>= LOOKUP_LOOP_MIN_CELLS) use the slot loop, which replaces serialized
+    gathers with S_max bandwidth-bound masked sweeps.
 
     ``lookup_group``: the slot loop's unroll depth — XLA keeps up to this
     many (N, A) f32 gather outputs LIVE per fori step, so at HBM-bound GO
@@ -269,21 +266,19 @@ def plan(K_np, n_max: int, M: int, *, chunk_cols: int = 512,
 
     Eligibility: integer K (binary annotations), integer n_max, and the table
     within budget. ``budget_cells`` bounds the summed f64 build WORK across
-    chunks (the per-cell recurrence runs at ~0.5 ns on v5e, so 1.2e9 cells
-    ~ 1 s of build — always far cheaper than the per-cell tail loop it
-    replaces); ``chunk_budget_cells`` bounds any single chunk's LIVE table
-    (~1.6 GB f32), the actual HBM constraint — chunks are transient, built,
+    chunks (always far cheaper than the per-cell tail loop it replaces);
+    ``chunk_budget_cells`` bounds any single chunk's LIVE table (~1.6 GB
+    f32), the actual memory constraint — chunks are transient, built,
     gathered from, and freed one at a time.
 
     Chunks run in NATURAL column order: each chunk's results land in a
     contiguous output slice (no pieces to concatenate, no column un-sort) —
     at 100k x 4,373 the sorted-pieces assembly transiently tripled the
-    output footprint and pushed peak HBM over the chip (measured as a 2x
-    slowdown from allocator thrash, then OOM).
+    output footprint).
 
     Chunk signatures are UNIFIED when budgets allow: every distinct
-    (R, S_max, C, width) tuple is a separately compiled program and remote
-    TPU compiles cost 1 s-10 min each, so the tail chunk is re-windowed to
+    (R, S_max, C, width) tuple is a separately compiled program, so the
+    tail chunk is re-windowed to
     end at ``n_attrs`` with full ``chunk_cols`` width (its leading
     ``overlap`` columns recompute the previous chunk's values identically —
     drivers overwrite in place and trim the overlap from per-chunk counts)

@@ -25,10 +25,14 @@ import numpy as np
 
 @jax.jit
 def euclidean_distance_matrix(coords):
-    """Dense pairwise Euclidean distances of an (N, 2) coordinate array."""
+    """Dense pairwise Euclidean distances of an (N, 2) coordinate array.
+
+    The Gram product runs at HIGHEST precision: an f32 matmul may otherwise
+    run in TF32 (~3 digits) on the GPU and move pairs across the radius."""
     coords = jnp.asarray(coords)
     sq = jnp.sum(coords * coords, axis=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * coords @ coords.T
+    d2 = sq[:, None] + sq[None, :] - 2.0 * jnp.dot(
+        coords, coords.T, precision=jax.lax.Precision.HIGHEST)
     d2 = jnp.maximum(d2, 0.0)
     d = jnp.sqrt(d2)
     # exact zero diagonal despite float cancellation
@@ -72,7 +76,7 @@ def _initial_distances_jit(u, v, w, *, num_nodes: int):
 
 def initial_distances_device(num_nodes: int, edges, weights=None):
     """Device-resident dense (N, N) FW initialization from an undirected edge
-    list — the TPU-native counterpart of :func:`dense_initial_distances`.
+    list — the device counterpart of :func:`dense_initial_distances`.
 
     Only the O(E) edge arrays cross the host->device link; the N x N matrix is
     materialized on device (building it host-side costs a first-touch page

@@ -5,7 +5,7 @@ the rows of ``node2attribute`` restricted to rows with >=1 non-NaN value, recomp
 neighborhood scores, and accumulate two-sided empirical counts
 ``counts_neg += (perm <= obs)``, ``counts_pos += (perm >= obs)`` (ties count on both
 sides). The reference runs this as a serial NumPy loop (optionally forked over a
-multiprocessing pool); here the whole null is a batched GEMM stream on the MXU:
+multiprocessing pool); here the whole null is a batched GEMM stream on the device:
 
   * permutations are independent keyed draws — NOT a replication of NumPy's
     in-place compounding permutation stream; each permuted state is still uniform,
@@ -14,14 +14,12 @@ multiprocessing pool); here the whole null is a batched GEMM stream on the MXU:
   * for single-attribute inputs (the flagship quantitative workload) the
     permuted value matrix comes from ONE ``lax.sort`` of random keys against the
     value column — a uniform random permutation applied directly to the data,
-    with no index materialization and no gather (a lone-column gather
-    serializes: measured 1.9x slower than the sort at 20k nodes). Wider inputs
-    use explicit ``jax.random.permutation`` indices + one row gather, whose
-    single (C, V) index set amortizes over all columns (measured faster than
-    the keyed sort for every A >= 2; crossover table at
+    with no index materialization and no gather. Wider inputs use explicit
+    ``jax.random.permutation`` indices + one row gather, whose single (C, V)
+    index set amortizes over all columns (crossover at
     SORT_PATH_MAX_ATTRIBUTES);
   * permuted attribute chunks are scored against the neighborhood indicator in one
-    ``(N, V) x (C, V, A)`` contraction; count accumulation happens on-chip in
+    ``(N, V) x (C, V, A)`` contraction; count accumulation happens on device in
     int32; nothing leaves the device until the final (N, A) count matrices.
 
 Rows with no annotated values are dropped from both operands up front: their score
@@ -32,8 +30,8 @@ key collision (expected ~0.05 tied pairs per permutation at V=20k) leaves the ti
 pair in index order — an O(2^-32) departure from uniformity, far below the
 statistical resolution of any permutation count.
 
-Multi-chip: `safepy_tpu.parallel.permutation_sharded` shards the permutation batch
-axis over the device mesh and psums these counts over ICI.
+Multi-device: `safepy_tpu.parallel.permutation_sharded` shards the permutation
+batch axis over the device mesh and psums these counts.
 """
 
 from __future__ import annotations
@@ -47,15 +45,11 @@ import numpy as np
 from safepy_tpu.ops.score import dot_kwargs
 
 # auto-engine crossover, NOT a capability cap (the sort engine serves any
-# width if forced). Measured on v5e, 19,968 nodes x 250 perms, steady
-# seconds sort vs gather: A=1 0.047/0.090 (sort 1.9x), A=2 0.092/0.076,
-# A=4 0.103/0.085, A=8 0.134/0.117, A=64 0.795/0.492 — one (C, V) index
-# set amortizes over all A columns of a row gather, so the gather engine
-# wins for every A >= 2 while the sort's per-column key traffic grows
-# linearly. The broadcast-key single-sort formulation keeps XLA program
-# size flat in A (an earlier per-group variadic-sort unroll compiled
-# >40 min at A=64 on the remote TPU toolchain; this one compiles in ~10 s
-# at any width).
+# width if forced): one (C, V) index set amortizes over all A columns of a
+# row gather, while the sort's per-column key traffic grows linearly. The
+# value predates the GPU port and is not yet re-measured on it
+# (ROADMAP.md). The broadcast-key single-sort formulation keeps XLA program
+# size flat in A.
 SORT_PATH_MAX_ATTRIBUTES = 1
 
 
@@ -121,9 +115,8 @@ def permuted_operands_sorted(vals, mask, chunk_key, chunk_size: int,
     identical keys produces the identical permutation: rows stay aligned
     across columns of any width (reference safe_extras.py:50-62 permutes
     matrices of arbitrary width). A single 2-3-operand sort keeps the XLA
-    program size flat in A — an earlier formulation unrolled one variadic
-    sort per 4-column group and the remote TPU compile blew past 40 minutes
-    at A=64. Returns (Bp, NBp): (C, V, A) permuted values and (when
+    program size flat in A (unrolling one variadic sort per column group
+    made compile time grow with A). Returns (Bp, NBp): (C, V, A) permuted values and (when
     ``with_mask``) their finite masks, permuted identically.
 
     ``pad_to``: return (C, pad_to, A) with all-zero tail rows, produced by

@@ -1,4 +1,4 @@
-"""Neighborhood scores on the MXU, with explicit NaN masks.
+"""Neighborhood scores as device GEMMs, with explicit NaN masks.
 
 Reference semantics: safepy/safe_extras.py:6-33 — ``AB = neighborhoods @
 nan_to_zero(node2attribute)`` is the 'sum' score; the 'z-score' variant divides the
@@ -6,11 +6,11 @@ per-neighborhood mean by the per-neighborhood standard deviation computed via
 ``E[X^2] - E[X]^2`` with a NaN-count matmul, and NaNs out neighborhoods with zero
 variance or fewer than 3 annotated members.
 
-TPU-native notes: NaNs are carried as an explicit 0/1 mask instead of NaN arithmetic,
-so every contraction is a clean dense GEMM for the MXU. ``precision=HIGHEST`` keeps
-f32 matmuls at full f32 accumulation (the default TPU f32 path decomposes through
-bf16), which keeps integer-valued scores exact — the permutation null counts ties with
-``<=`` / ``>=`` so score determinism matters.
+Device notes: NaNs are carried as an explicit 0/1 mask instead of NaN arithmetic,
+so every contraction is a clean dense GEMM. ``precision=HIGHEST`` keeps f32 matmuls
+at full f32 (an NVIDIA GPU's default f32 path runs TF32 on the tensor cores, ~3
+significant digits), which keeps integer-valued scores exact — the permutation null
+counts ties with ``<=`` / ``>=`` so score determinism matters.
 """
 
 from __future__ import annotations
@@ -28,10 +28,10 @@ _PRECISIONS = {"highest": jax.lax.Precision.HIGHEST,
 def dot_kwargs(precision: str = "highest"):
     """Matmul precision for the score contractions. 'highest' keeps f32
     accumulation exact for integer-valued scores (full tie parity with the
-    reference's counting); 'high' is the 3-pass bf16 decomposition (~2x faster,
-    near-f32 fidelity); 'default' uses the single-pass bf16 MXU path — fastest
-    at large N, with obs and permuted scores rounded identically so tie
-    semantics stay consistent."""
+    reference's counting); 'high' and 'default' let the backend trade digits
+    for speed (on an NVIDIA GPU: 3-pass bf16 and TF32 tensor cores) — obs
+    and permuted scores are rounded identically, so tie semantics stay
+    consistent."""
     return dict(precision=_PRECISIONS[precision],
                 preferred_element_type=jnp.float32)
 

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: device meshes, sharded pipelines, ICI collectives.
+"""Multi-device scaling: device meshes, sharded pipelines, collectives.
 
 The reference parallelizes with host multiprocessing pools — permutation batches
 split over workers with host-side count summation (safepy/safe.py:501-519) and
@@ -7,7 +7,7 @@ jax.sharding meshes:
 
   * :mod:`safepy_tpu.parallel.mesh` — mesh construction helpers;
   * :mod:`safepy_tpu.parallel.permutation_sharded` — permutation batch sharded over
-    the mesh, counts psum-reduced over ICI;
+    the mesh, counts psum-reduced;
   * :mod:`safepy_tpu.parallel.apsp_sharded` — row-sharded blocked Floyd-Warshall:
     pivot panels broadcast with pmin, the O(N^3 / n_devices) phase-3 relaxation
     local per device;

@@ -10,10 +10,10 @@ round broadcasts only the closed pivot row panel:
     2. every device closes the (T, T) diagonal tile and relaxes the panel against
        it (replicated O(N T^2) work — a T*ndev/N fraction of the local phase-3);
     3. every device relaxes its LOCAL row slab: Q_local = slab[:, kb-block],
-       slab = min(slab, Q_local (x) panel) — the O(N^3 / ndev) bulk, on the VPU via
-       the Pallas relax kernel (jnp fallback off-TPU).
+       slab = min(slab, Q_local (x) panel) — the O(N^3 / ndev) bulk, through
+       ops/minplus.py.
 
-  Comms per round: one (T, N) pmin over ICI — N^2 floats total per full pass.
+  Comms per round: one (T, N) pmin — N^2 floats total per full pass.
 
 Reference analog: none — the reference's APSP is a serial host loop
 (safepy/safe.py:406-410); this is the scale-out path BASELINE.json's 20k-node
@@ -28,25 +28,16 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from safepy_tpu.ops import apsp_pallas
-from safepy_tpu.ops.apsp import min_plus_relax_jax as _relax_jnp, pad_distances
+from safepy_tpu.ops import minplus
+from safepy_tpu.ops.apsp import pad_distances
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "axis", "block", "use_pallas"))
-def _apsp_sharded_impl(d_padded, *, mesh, axis, block, use_pallas):
+@functools.partial(jax.jit, static_argnames=("mesh", "axis", "block", "impl"))
+def _apsp_sharded_impl(d_padded, *, mesh, axis, block, impl):
     npad = d_padded.shape[0]
     ndev = mesh.shape[axis]
     rows_per_dev = npad // ndev
     nb = npad // block
-
-    if use_pallas:
-        relax_rows = functools.partial(apsp_pallas._relax_rows, block=block)
-        relax_cols = functools.partial(apsp_pallas._relax_cols, block=block)
-        relax_full = functools.partial(apsp_pallas._relax_full, block=block)
-    else:
-        relax_rows = lambda diag, panel: _relax_jnp(panel, diag, panel)
-        relax_cols = lambda panel, diag: _relax_jnp(panel, panel, diag)
-        relax_full = lambda q, p, d: _relax_jnp(d, q, p)
 
     # check_vma=False: pallas_call outputs inside shard_map lack the
     # varying-mesh-axes annotation jax would otherwise demand
@@ -66,13 +57,13 @@ def _apsp_sharded_impl(d_padded, *, mesh, axis, block, use_pallas):
             p = jax.lax.pmin(p, axis)  # broadcast the pivot row panel
 
             diag = jax.lax.dynamic_slice(p, (0, start), (block, block))
-            diag = apsp_pallas._close_diag(diag, block)
-            p = relax_rows(diag, p)
+            diag = minplus.close_tile(diag, impl=impl)
+            p = minplus.relax(p, diag, p, impl=impl)
 
             q = jax.lax.dynamic_slice(slab, (0, start), (rows_per_dev, block))
-            q = relax_cols(q, diag)
+            q = minplus.relax(q, q, diag, impl=impl)
 
-            return relax_full(q, p, slab)
+            return minplus.relax(slab, q, p, impl=impl)
 
         return jax.lax.fori_loop(0, nb, round_body, slab)
 
@@ -80,7 +71,7 @@ def _apsp_sharded_impl(d_padded, *, mesh, axis, block, use_pallas):
 
 
 def apsp_sharded(dist, mesh: Mesh, *, axis: str = "data", block: int = 128,
-                 use_pallas: bool | None = None):
+                 impl: str | None = None):
     """All-pairs shortest paths with the distance matrix row-sharded over `mesh`."""
     dist = jnp.asarray(dist, jnp.float32)
     n = dist.shape[0]
@@ -88,8 +79,6 @@ def apsp_sharded(dist, mesh: Mesh, *, axis: str = "data", block: int = 128,
     # pad so that block tiles never straddle a shard boundary
     unit = block * ndev
     d = pad_distances(dist, unit)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     out = _apsp_sharded_impl(d, mesh=mesh, axis=axis, block=block,
-                             use_pallas=bool(use_pallas))
+                             impl=minplus.resolve(impl))
     return out[:n, :n]

@@ -29,29 +29,20 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from safepy_tpu.ops import apsp_pallas
-from safepy_tpu.ops.apsp import min_plus_relax_jax as _relax_jnp, pad_distances
+from safepy_tpu.ops import minplus
+from safepy_tpu.ops.apsp import pad_distances
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "row_axis", "col_axis",
-                                             "block", "use_pallas"))
+                                             "block", "impl"))
 def _apsp_sharded_2d_impl(d_padded, *, mesh, row_axis, col_axis, block,
-                          use_pallas):
+                          impl):
     npad = d_padded.shape[0]
     n_row = mesh.shape[row_axis]
     n_col = mesh.shape[col_axis]
     rows_per_dev = npad // n_row
     cols_per_dev = npad // n_col
     nb = npad // block
-
-    if use_pallas:
-        relax_rows = functools.partial(apsp_pallas._relax_rows, block=block)
-        relax_cols = functools.partial(apsp_pallas._relax_cols, block=block)
-        relax_full = functools.partial(apsp_pallas._relax_full, block=block)
-    else:
-        relax_rows = lambda diag, panel: _relax_jnp(panel, diag, panel)
-        relax_cols = lambda panel, diag: _relax_jnp(panel, panel, diag)
-        relax_full = lambda q, p, d: _relax_jnp(d, q, p)
 
     @functools.partial(jax.shard_map, mesh=mesh, check_vma=False,
                        in_specs=P(row_axis, col_axis),
@@ -80,18 +71,18 @@ def _apsp_sharded_2d_impl(d_padded, *, mesh, row_axis, col_axis, block,
             diag_loc = jax.lax.dynamic_slice(p, (0, local_col), (block, block))
             diag = jnp.where(my_col == col_owner, diag_loc, jnp.inf)
             diag = jax.lax.pmin(diag, col_axis)
-            diag = apsp_pallas._close_diag(diag, block)
-            p = relax_rows(diag, p)
+            diag = minplus.close_tile(diag, impl=impl)
+            p = minplus.relax(p, diag, p, impl=impl)
 
             # 3. pivot column panel for MY row slice, broadcast across columns
             q_loc = jax.lax.dynamic_slice(blockmat, (0, local_col),
                                           (rows_per_dev, block))
             q = jnp.where(my_col == col_owner, q_loc, jnp.inf)
             q = jax.lax.pmin(q, col_axis)
-            q = relax_cols(q, diag)
+            q = minplus.relax(q, q, diag, impl=impl)
 
             # 4. local O(N^3 / (R*C)) relaxation
-            return relax_full(q, p, blockmat)
+            return minplus.relax(blockmat, q, p, impl=impl)
 
         return jax.lax.fori_loop(0, nb, round_body, blockmat)
 
@@ -100,18 +91,16 @@ def _apsp_sharded_2d_impl(d_padded, *, mesh, row_axis, col_axis, block,
 
 def apsp_sharded_2d(dist, mesh: Mesh, *, row_axis: str = "row",
                     col_axis: str = "col", block: int = 128,
-                    use_pallas: bool | None = None):
+                    impl: str | None = None):
     """All-pairs shortest paths with the distance matrix 2-D block-sharded."""
     dist = jnp.asarray(dist, jnp.float32)
     n = dist.shape[0]
     # tiles must never straddle a shard boundary on either axis
     unit = _lcm(block * mesh.shape[row_axis], block * mesh.shape[col_axis])
     d = pad_distances(dist, unit)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     out = _apsp_sharded_2d_impl(d, mesh=mesh, row_axis=row_axis,
                                 col_axis=col_axis, block=block,
-                                use_pallas=bool(use_pallas))
+                                impl=minplus.resolve(impl))
     return out[:n, :n]
 
 

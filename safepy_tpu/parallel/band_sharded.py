@@ -1,7 +1,7 @@
 """Row-sharded band-STORAGE Floyd-Warshall + banded enrichment over a mesh.
 
 Composes the two scaling ideas: `ops/apsp_bandstore.py` removes the dense
-O(N^2) matrix (one chip reaches ~100k nodes), and this module row-block shards
+O(N^2) matrix (one device reaches ~100k nodes), and this module row-block shards
 the skewed band over a mesh axis so both HBM *and* compute scale with the
 device count — the path to many-hundred-thousand-node networks.
 
@@ -13,7 +13,7 @@ Per pivot round kb:
   2. every device closes the diagonal tile (static slab column — the skew's
      payoff) and relaxes the pivot slab against it (replicated tiny work);
   3. ONLY devices whose rows intersect the pivot window [Kg-bt, Kg+bt] run the
-     window relax (``lax.cond`` — TPU executes a real branch), each for its
+     window relax (``lax.cond`` — a real branch), each for its
      owned subset of the 2*bt+1 window rows. Per-device phase-3 work is
      O((N/ndev) * W^2): compute scales, not just memory.
 
@@ -36,8 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from safepy_tpu.ops import apsp_pallas
-from safepy_tpu.ops.apsp import min_plus_relax_jax as _relax_jnp
+from safepy_tpu.ops import minplus
 
 _INF = float("inf")
 
@@ -89,16 +88,9 @@ def band_init_local(u, v, w, my, *, n: int, bt: int, local_rows: int,
 
 
 def _band_fw_rounds(slab, my, axis, *, nb: int, bt: int, local_rows: int,
-                    block: int, use_pallas: bool):
+                    block: int, impl: str):
     """The pivot loop over a device-local slab (called inside shard_map)."""
     width = slab.shape[1]
-
-    if use_pallas:
-        relax_rows = functools.partial(apsp_pallas._relax_rows, block=block)
-        relax_panel = functools.partial(apsp_pallas._relax_panel, block=block)
-    else:
-        relax_rows = lambda diag, panel: _relax_jnp(panel, diag, panel)
-        relax_panel = lambda q, p, c: _relax_jnp(c, q, p)
 
     lrows = local_rows * block
 
@@ -115,9 +107,9 @@ def _band_fw_rounds(slab, my, axis, *, nb: int, bt: int, local_rows: int,
         p = jax.lax.pmin(p, axis)
 
         diag = p[:, bt * block:(bt + 1) * block]
-        diag = apsp_pallas._close_diag(diag, block)
+        diag = minplus.close_tile(diag, impl=impl)
         p = jax.lax.dynamic_update_slice(p, diag, (0, bt * block))
-        p = relax_rows(diag, p)
+        p = minplus.relax(p, diag, p, impl=impl)
 
         cur = jax.lax.dynamic_slice(slab, (local_start, z), (block, width))
         upd = jnp.where(my == owner, p, cur)
@@ -138,7 +130,7 @@ def _band_fw_rounds(slab, my, axis, *, nb: int, bt: int, local_rows: int,
                                           (block, block))
                 pslice = jax.lax.dynamic_slice(p_ext, (z, o * block),
                                                (block, width))
-                c2 = relax_panel(q, pslice, c)
+                c2 = minplus.relax(c, q, pslice, impl=impl)
                 upd = jnp.where(in_range, c2, c)
                 return jax.lax.dynamic_update_slice(slab, upd, (li_c, z))
 
@@ -152,17 +144,16 @@ def _band_fw_rounds(slab, my, axis, *, nb: int, bt: int, local_rows: int,
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "axis", "n", "band",
-                                             "block", "use_pallas"))
+                                             "block", "impl"))
 def apsp_band_fw_sharded(s_ghosted, *, mesh: Mesh, axis: str = "data",
                          n: int, band: int, block: int = 128,
-                         use_pallas: bool | None = None):
+                         impl: str | None = None):
     """Band-storage FW with the ghosted skewed array row-sharded over `mesh`.
 
     ``s_ghosted``: ((g_pad)*block, W) from :func:`sharded_band_geometry`
     padding (extra bottom ghost rows +inf). Returns the same global frame.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    impl = minplus.resolve(impl)
     ndev = mesh.shape[axis]
     bt, nb, width, g_pad, local_rows = sharded_band_geometry(
         n, band, ndev, block)
@@ -175,7 +166,7 @@ def apsp_band_fw_sharded(s_ghosted, *, mesh: Mesh, axis: str = "data",
         my = jax.lax.axis_index(axis)
         return _band_fw_rounds(slab, my, axis, nb=nb, bt=bt,
                                local_rows=local_rows, block=block,
-                               use_pallas=bool(use_pallas))
+                               impl=impl)
 
     return worker(s_ghosted)
 
@@ -418,14 +409,14 @@ def _ghost_pad_cols(x, bt: int, block: int, npad: int):
 
 @functools.partial(jax.jit, static_argnames=(
     "mesh", "axis", "n", "band", "block", "score_type", "num_permutations",
-    "batch_size", "w_c", "precision", "use_pallas", "keep_distances",
+    "batch_size", "w_c", "precision", "impl", "keep_distances",
     "packed"))
 def fused_permutation_pipeline_band_sharded(
         u, v, w, vals, vals_valid, valid, starts, rank, key, radius, *,
         mesh: Mesh, axis: str = "data", n: int, band: int, block: int = 128,
         score_type: str = "sum", num_permutations: int = 1000,
         batch_size: int = 1000, w_c: int, precision: str = "highest",
-        use_pallas: bool | None = None, keep_distances: bool = True,
+        impl: str | None = None, keep_distances: bool = True,
         packed: bool = False):
     """Row-sharded band pipeline: init, FW, threshold, scores, null — one
     dispatch, every band-shaped array partitioned over `axis`.
@@ -441,8 +432,7 @@ def fused_permutation_pipeline_band_sharded(
     from safepy_tpu.ops.apsp_bandstore import (apply_compaction,
                                                band_row_sizes, band_threshold)
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    impl = minplus.resolve(impl)
     ndev = mesh.shape[axis]
     bt, nb, width, g_pad, local_rows = sharded_band_geometry(
         n, band, ndev, block)
@@ -471,7 +461,7 @@ def fused_permutation_pipeline_band_sharded(
                                block=block)
         slab = _band_fw_rounds(slab, my, axis, nb=nb, bt=bt,
                                local_rows=local_rows, block=block,
-                               use_pallas=bool(use_pallas))
+                               impl=impl)
         # packed=True stores the shard's indicator BIT-packed (8 cells/byte;
         # ops/apsp_bandstore.is_packed_bits) — dtype-keyed consumers below
         ind = band_threshold(slab, radius, packed=packed, block=block)
@@ -511,21 +501,20 @@ def fused_permutation_pipeline_band_sharded(
 
 @functools.partial(jax.jit, static_argnames=(
     "mesh", "axis", "n", "band", "block", "iterations", "precision",
-    "use_pallas"))
+    "impl"))
 def fused_hypergeom_pipeline_band_sharded(
         u, v, w, nan0, nodes_not_nan, K, lgt, M, radius,
         enrichment_threshold, rank, *,
         mesh: Mesh, axis: str = "data", n: int, band: int, block: int = 128,
         iterations: int, precision: str = "highest",
-        use_pallas: bool | None = None):
+        impl: str | None = None):
     """Row-sharded band pipeline, hypergeometric engine: census + survival
     tail per shard, no collectives after the FW's pivot pmin. Operands are
     host-precomputed like fused_hypergeom_pipeline_band's; like it, NES is
     not returned — the facade derives -logsf/ln10 lazily."""
     from safepy_tpu.ops.hypergeom import _sf_parts, finalize_logsf_device
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    impl = minplus.resolve(impl)
     ndev = mesh.shape[axis]
     bt, nb, width, g_pad, local_rows = sharded_band_geometry(
         n, band, ndev, block)
@@ -549,7 +538,7 @@ def fused_hypergeom_pipeline_band_sharded(
                                block=block)
         slab = _band_fw_rounds(slab, my, axis, nb=nb, bt=bt,
                                local_rows=local_rows, block=block,
-                               use_pallas=bool(use_pallas))
+                               impl=impl)
         dist_local = jnp.where(slab <= jnp.asarray(radius, slab.dtype), slab,
                                jnp.inf)
         ind = (slab <= jnp.asarray(radius, slab.dtype)).astype(jnp.int8)
@@ -585,10 +574,10 @@ def fused_hypergeom_pipeline_band_sharded(
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("mesh", "axis", "n", "band",
-                                             "block", "use_pallas", "packed"))
+                                             "block", "impl", "packed"))
 def band_neighborhoods_sharded(u, v, w, radius, *, mesh: Mesh,
                                axis: str = "data", n: int, band: int,
-                               block: int = 128, use_pallas: bool | None = None,
+                               block: int = 128, impl: str | None = None,
                                packed: bool = False):
     """Row-sharded band FW front half: (dist_g, ind_g, sizes_g, mean, std).
 
@@ -598,8 +587,7 @@ def band_neighborhoods_sharded(u, v, w, radius, *, mesh: Mesh,
     see ops/apsp_bandstore.is_packed_bits)."""
     from safepy_tpu.ops.apsp_bandstore import band_row_sizes, band_threshold
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    impl = minplus.resolve(impl)
     ndev = mesh.shape[axis]
     bt, nb, width, g_pad, local_rows = sharded_band_geometry(
         n, band, ndev, block)
@@ -616,7 +604,7 @@ def band_neighborhoods_sharded(u, v, w, radius, *, mesh: Mesh,
                                block=block)
         slab = _band_fw_rounds(slab, my, axis, nb=nb, bt=bt,
                                local_rows=local_rows, block=block,
-                               use_pallas=bool(use_pallas))
+                               impl=impl)
         dist_local = jnp.where(slab <= jnp.asarray(radius, slab.dtype), slab,
                                jnp.inf)
         ind = band_threshold(slab, radius, packed=packed, block=block)

@@ -1,6 +1,6 @@
 """Hypergeometric census with attribute columns sharded over the mesh.
 
-TPU-native replacement for the reference CLI's column-chunked multiprocessing pool
+Device-mesh replacement for the reference CLI's column-chunked multiprocessing pool
 (safepy/safe.py:1335-1355): the (N, A) annotation matrix is column-sharded, every
 device computes its slice of the neighborhood-count matmul locally, and there is
 NO inter-device traffic until the final host gather — the neighborhood indicator

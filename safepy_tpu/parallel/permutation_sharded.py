@@ -1,10 +1,10 @@
 """Permutation null sharded over the device mesh.
 
-TPU-native replacement for the reference's multiprocessing pool
+Device-mesh replacement for the reference's multiprocessing pool
 (safepy/safe.py:501-519): the permutation batch is split evenly over ALL mesh
 axes (rounded up, exactly like the reference rounds to a multiple of the worker
 count, safe.py:503-504), every device runs an independent keyed slice of the
-null, and the two-sided count stacks are psum-reduced over ICI instead of
+null, and the two-sided count stacks are psum-reduced instead of
 pickled back to the host.
 """
 

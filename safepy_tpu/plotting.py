@@ -26,9 +26,15 @@ from __future__ import annotations
 import logging
 import os
 import random
+import sys
 import textwrap
 
-import matplotlib.pyplot as plt
+# Run headless outside Jupyter, like the reference (safe.py:16-18).
+if "matplotlib" not in sys.modules:
+    import matplotlib
+    matplotlib.use("Agg")
+
+import matplotlib.pyplot as plt  # noqa: E402
 import networkx as nx
 import numpy as np
 import pandas as pd
@@ -345,7 +351,7 @@ def _domain_mixture_colors(sf, domain2rgb):
         # node2domain's count columns ARE these sums (define_domains computes
         # them on device at band scale; trim renumbers both sides in step) —
         # reuse instead of re-reducing the (N, A) indicator on host, which
-        # costs an int8 relay download + ~N*A adds at the 99,840 x 4,373 scale
+        # costs an int8 host download + ~N*A adds at the 99,840 x 4,373 scale
         counts = n2d[list(unique_domains)].to_numpy()
     else:
         nes_binary = sf._nes_binary_small()  # int8; sums promote to int64

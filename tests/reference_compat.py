@@ -1,7 +1,7 @@
 """Import the reference implementation (/root/reference, baryshnikova-lab/safepy)
 inside this image so differential parity tests can run BOTH frameworks on the same
-inputs (VERDICT r1 item #1 — the BASELINE metric is "p-value deviation <= 1e-6 vs
-reference", which must be measured, not inferred).
+inputs (the BASELINE metric is "p-value deviation <= 1e-6 vs reference", which
+must be measured, not inferred).
 
 Two compatibility shims are needed (the reference pins older deps,
 extras/requirements.txt, and this image carries pandas 3.x and no statsmodels):

@@ -54,48 +54,28 @@ def test_min_plus_jax(rng):
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-def test_min_plus_pallas_interpret(rng):
-    """Pallas kernel correctness via the interpreter (no TPU in CI)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from safepy_tpu.ops.apsp_pallas import min_plus_pallas
+@pytest.mark.parametrize("n,block", [(150, 64), (97, 32)])
+def test_apsp_blocked_fw_interpret(rng, n, block):
+    """Blocked FW with the Triton-route kernel in the Pallas interpreter:
+    exact against scipy, and bit-identical to the jnp tile relax (sizes not
+    multiples of the tile exercise the +inf padding)."""
+    from safepy_tpu.ops.apsp import apsp_blocked_fw
 
-    a = rng.uniform(0, 5, size=(100, 130)).astype(np.float32)
-    b = rng.uniform(0, 5, size=(130, 70)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(min_plus_pallas(a, b, block=64))
-    want = np.min(a[:, :, None] + b[None, :, :], axis=1)
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-
-
-def test_apsp_blocked_fw_interpret(rng):
-    from jax.experimental.pallas import tpu as pltpu
-    from safepy_tpu.ops.apsp_pallas import apsp_blocked_fw
-
-    n = 150
     edges, weights = _random_weighted_graph(rng, n, p=0.04)
     d0 = dense_initial_distances(n, edges, weights)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=64))
+    got = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=block,
+                                     impl="interpret"))
     want = _oracle(n, edges, weights)
     np.testing.assert_allclose(got, want, rtol=1e-5)
-
-
-def test_apsp_squaring_interpret(rng):
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = 90
-    edges, weights = _random_weighted_graph(rng, n, p=0.06)
-    d0 = dense_initial_distances(n, edges, weights)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(apsp(jnp.asarray(d0), method="pallas_squaring", block=64))
-    want = _oracle(n, edges, weights)
-    np.testing.assert_allclose(got, want, rtol=1e-5)
+    ref = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=block,
+                                     impl="jnp"))
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_min_plus_product_dispatch(rng):
     a = rng.uniform(0, 5, size=(9, 12))
     b = rng.uniform(0, 5, size=(12, 7))
-    got = np.asarray(min_plus_product(a, b, method="jax"))
+    got = np.asarray(min_plus_product(a, b))
     want = np.min(a[:, :, None] + b[None, :, :], axis=1)
     np.testing.assert_allclose(got, want, rtol=1e-6)
     with pytest.raises(ValueError):
@@ -106,16 +86,14 @@ def test_apsp_blocked_fw_symmetric_bit_identical(rng):
     """symmetric=True (upper triangle + mirror transpose) is bit-identical to
     the classic kernel on symmetric inputs — both pivot panels are the raw
     panel relaxed once against the bitwise-symmetric closed diagonal, so
-    q == p.T exactly (apsp_pallas._relax_full_banded_sym)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from safepy_tpu.ops.apsp_pallas import apsp_blocked_fw
+    q == p.T exactly (ops/minplus.relax_upper)."""
+    from safepy_tpu.ops.apsp import apsp_blocked_fw
 
     n = 150
     edges, weights = _random_weighted_graph(rng, n, p=0.04)
     d0 = dense_initial_distances(n, edges, weights)
-    with pltpu.force_tpu_interpret_mode():
-        classic = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=64,
-                                             symmetric=False))
-        sym = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=64,
-                                         symmetric=True))
+    classic = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=64,
+                                         symmetric=False, impl="interpret"))
+    sym = np.asarray(apsp_blocked_fw(jnp.asarray(d0), block=64,
+                                     symmetric=True, impl="interpret"))
     np.testing.assert_array_equal(sym, classic)

@@ -2,6 +2,7 @@
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from scipy.sparse import coo_matrix
@@ -44,8 +45,7 @@ def test_banded_matches_oracle_within_radius(seed):
     d0 = dense_initial_distances(n, inv[edges], w, dtype=np.float32)
     window = ab.window_width(n, band, block)
     d = pad_distances(jnp.asarray(d0), block)
-    out = np.asarray(ab.apsp_banded_fw(d, window=window, block=block,
-                                       use_pallas=False))[:n, :n]
+    out = np.asarray(ab.apsp_banded_fw(d, window=window, block=block))[:n, :n]
     dist = out[inv][:, inv]  # back to original node frame
 
     ref = _oracle(n, edges, w)
@@ -127,17 +127,16 @@ def test_facade_banded_matches_full(tmp_path):
                                   full.neighborhoods)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.slow
-def test_banded_symmetric_kernel_bit_identical(seed):
-    """The symmetric window kernel (upper triangle + mirror transpose,
-    apsp_pallas._relax_full_banded_sym) is BIT-identical to the classic
-    kernel: both pivot panels are the raw panel relaxed once against the
-    bitwise-symmetric closed diagonal, so q == p.T exactly and the mirrored
-    products are the same f32 sums."""
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.mark.parametrize("seed,n,block", [(0, 420, 32), (1, 333, 64)])
+def test_banded_symmetric_kernel_bit_identical(seed, n, block):
+    """The window FW with the Triton-route kernel (Pallas interpreter) is
+    BIT-identical to the jnp tile relax, and both are bit-identical to
+    relaxing every in-band tile without the mirror: both pivot panels are
+    the raw panel relaxed once against the bitwise-symmetric closed
+    diagonal, so q == p.T exactly and the mirrored products are the same
+    f32 sums."""
+    from safepy_tpu.ops import minplus
 
-    n, block = 420, 32
     coords, edges, w = _geometric_graph(n, 6, seed)
     nr = 0.15 * (coords[:, 0].max() - coords[:, 0].min())
     order, band = ab.banded_order(coords, nr * (1 + 1e-5))
@@ -146,12 +145,35 @@ def test_banded_symmetric_kernel_bit_identical(seed):
     d0 = dense_initial_distances(n, inv[edges], w, dtype=np.float32)
     window = ab.window_width(n, band, block)
     d = pad_distances(jnp.asarray(d0), block)
-    with pltpu.force_tpu_interpret_mode():
-        classic = np.asarray(ab.apsp_banded_fw(
-            d, window=window, block=block, use_pallas=True, symmetric=False))
-        sym = np.asarray(ab.apsp_banded_fw(
-            d, window=window, block=block, use_pallas=True, symmetric=True))
-    np.testing.assert_array_equal(sym, classic)
+    jnp_out = np.asarray(ab.apsp_banded_fw(d, window=window, block=block,
+                                           impl="jnp"))
+    kernel = np.asarray(ab.apsp_banded_fw(d, window=window, block=block,
+                                          impl="interpret"))
+    np.testing.assert_array_equal(kernel, jnp_out)
+
+    # whole in-band window relax, no mirror
+    npad = d.shape[0]
+    half = (window - block) // 2
+    band_tiles = half // block + 3
+    tiles = np.arange(window) // block
+    keep = np.abs(tiles[:, None] - tiles[None, :]) <= band_tiles
+
+    def round_body(kb, dd):
+        start = kb * block
+        lo = jnp.clip(start - half, 0, npad - window)
+        p = jax.lax.dynamic_slice(dd, (start, lo), (block, window))
+        diag = minplus.close_tile(
+            jax.lax.dynamic_slice(dd, (start, start), (block, block)),
+            impl="jnp")
+        p = minplus.relax_jnp(p, diag, p)
+        q = jax.lax.dynamic_slice(dd, (lo, start), (window, block))
+        q = minplus.relax_jnp(q, q, diag)
+        win = jax.lax.dynamic_slice(dd, (lo, lo), (window, window))
+        win = jnp.where(keep, minplus.relax_jnp(win, q, p), win)
+        return jax.lax.dynamic_update_slice(dd, win, (lo, lo))
+
+    whole = np.asarray(jax.lax.fori_loop(0, npad // block, round_body, d))
+    np.testing.assert_array_equal(jnp_out, whole)
 
 
 def test_window_bound_path_certifies(seed=3):

@@ -86,7 +86,7 @@ def test_bandstore_fw_matches_oracle_within_radius(seed, long_edges):
                                 jnp.asarray(w, jnp.float32),
                                 n=n, band=band, block=block)
     bt, _, _ = bs.band_params(n, band, block)
-    out = bs.apsp_band_fw(s, bt=bt, block=block, use_pallas=False)
+    out = bs.apsp_band_fw(s, bt=bt, block=block)
     dense = bs.unpack_band(out, n, band, block)
     dist = dense[rank][:, rank]  # back to the original node frame
 
@@ -102,10 +102,10 @@ def test_bandstore_fw_matches_oracle_within_radius(seed, long_edges):
     assert (dist[outside] >= ref[outside] * (1 - 1e-5)).all()
 
 
-def test_bandstore_fw_pallas_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, block = 384, 64
+@pytest.mark.parametrize("n,block", [(384, 64), (333, 32)])
+def test_bandstore_fw_pallas_interpret(n, block):
+    """The Triton-route kernel (Pallas interpreter) relaxes the skewed wedge
+    to the same bits as the jnp tile relax, over a whole band FW."""
     _, edges, w, nr, rank, band = _banded_setup(n, 6, 1, block)
     pe = rank[edges]
     s = bs.band_init_from_edges(jnp.asarray(pe[:, 0], jnp.int32),
@@ -113,14 +113,10 @@ def test_bandstore_fw_pallas_interpret():
                                 jnp.asarray(w, jnp.float32),
                                 n=n, band=band, block=block)
     bt, _, _ = bs.band_params(n, band, block)
-    want = np.asarray(bs.apsp_band_fw(s, bt=bt, block=block, use_pallas=False))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(bs.apsp_band_fw(s, bt=bt, block=block,
-                                         use_pallas=True, symmetric=False))
+    want = np.asarray(bs.apsp_band_fw(s, bt=bt, block=block, impl="jnp"))
+    got = np.asarray(bs.apsp_band_fw(s, bt=bt, block=block,
+                                     impl="interpret"))
     np.testing.assert_array_equal(got, want)
-    # the symmetric default is pinned separately (tolerance-based — its
-    # mirror swaps which operand saw the phase-2-relaxed pivot row):
-    # test_band_fw_symmetric_kernel_interpret
 
 
 def _thresholded_band(n, k, seed, block):
@@ -131,7 +127,7 @@ def _thresholded_band(n, k, seed, block):
                                 jnp.asarray(w, jnp.float32),
                                 n=n, band=band, block=block)
     bt, _, _ = bs.band_params(n, band, block)
-    out = bs.apsp_band_fw(s, bt=bt, block=block, use_pallas=False)
+    out = bs.apsp_band_fw(s, bt=bt, block=block)
     r = inclusive_radius(nr)
     s_ind = bs.band_threshold(out, r)
     dense_ind = (bs.unpack_band(out, n, band, block) <= float(r))
@@ -202,8 +198,8 @@ def test_euclidean_band_indicator_matches_distances():
 
 
 def test_apply_compaction_chunked_bit_identical():
-    """Chunked compaction sorts (the giant-band HBM lever — the stable sort's
-    s32 iota tiebreaker is full-array-sized on TPU) == single-shot, bitwise,
+    """Chunked compaction sorts (the giant-band memory lever — the stable
+    sort's s32 iota tiebreaker can be full-array-sized) == single-shot, bitwise,
     including the backed-up overlapping last chunk."""
     n, block = 500, 64
     s_ind, dense_ind, rank, band, bt = _thresholded_band(n, 6, 5, block)
@@ -247,7 +243,7 @@ def test_band_bf_matches_fw(seed, long_edges, stripe):
     (reference semantics: safe.py:406-410 Dijkstra cutoff)."""
     n, block = 420, 64
     s0, slots, s_slots, bt, band, r = _bf_setup(n, 6, seed, block, long_edges)
-    fw = bs.apsp_band_fw(s0, bt=bt, block=block, use_pallas=False)
+    fw = bs.apsp_band_fw(s0, bt=bt, block=block)
     bf, conv, iters = bs.apsp_band_bf(s0, *slots, np.float32(r), bt=bt,
                                       block=block, max_iters=64,
                                       stripe=stripe)
@@ -281,7 +277,7 @@ def test_band_bf_hop_metric():
                                  jnp.asarray(pe[:, 1], jnp.int32),
                                  jnp.asarray(w), n=n, band=band, block=block)
     bt, _, _ = bs.band_params(n, band, block)
-    fw = bs.apsp_band_fw(s0, bt=bt, block=block, use_pallas=False)
+    fw = bs.apsp_band_fw(s0, bt=bt, block=block)
     nbr, dlt, wgt, _ = bs.band_bf_slots(pe[:, 0], pe[:, 1], w, n=n,
                                         band=band, block=block)
     clamp = np.float32(r * (1 + 1e-6))
@@ -300,11 +296,11 @@ def test_band_bf_unconverged_fw_finisher():
     fall-back contract."""
     n, block = 420, 64
     s0, slots, s_slots, bt, band, r = _bf_setup(n, 6, 3, block)
-    fw = bs.apsp_band_fw(s0, bt=bt, block=block, use_pallas=False)
+    fw = bs.apsp_band_fw(s0, bt=bt, block=block)
     bf, conv, _ = bs.apsp_band_bf(s0, *slots, np.float32(r), bt=bt,
                                   block=block, max_iters=1)
     assert not bool(conv)
-    finished = bs.apsp_band_fw(bf, bt=bt, block=block, use_pallas=False)
+    finished = bs.apsp_band_fw(bf, bt=bt, block=block)
     np.testing.assert_array_equal(np.asarray(bs.band_threshold(finished, r)),
                                   np.asarray(bs.band_threshold(fw, r)))
 
@@ -320,13 +316,12 @@ def test_bf_max_iters_budget():
 
 @pytest.mark.parametrize("seed,radius_frac", [(1, 0.1), (2, 0.18)])
 def test_band_fw_symmetric_kernel_interpret(seed, radius_frac):
-    """The symmetric window relax (upper wedge + mirror transpose) reaches
-    the same fixpoint as the classic kernel: indicator bit-identical,
-    within-radius distances equal to f32 association noise (the mirror swaps
-    which operand saw the phase-2-relaxed pivot row, so bitwise equality is
-    not expected mid-matrix)."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """The symmetric window relax (upper wedge + mirror transpose, Triton
+    kernel in the Pallas interpreter) reaches the same fixpoint as the
+    whole-window relax: indicator bit-identical, within-radius distances
+    equal to f32 association noise (the mirror swaps which operand saw the
+    phase-2-relaxed pivot row, so bitwise equality is not expected
+    mid-matrix)."""
     n, block = 420, 32  # small block -> bt 2-4, exercises the wedge logic
     rng = np.random.default_rng(seed)
     coords = rng.uniform(-1, 1, (n, 2))
@@ -348,11 +343,9 @@ def test_band_fw_symmetric_kernel_interpret(seed, radius_frac):
     bt, _, _ = bs.band_params(n, band, block)
     assert bt >= 2
     r = inclusive_radius(nr)
-    want = np.asarray(bs.apsp_band_fw(s0, bt=bt, block=block,
-                                      use_pallas=False))
-    with pltpu.force_tpu_interpret_mode():
-        sym = np.asarray(bs.apsp_band_fw(s0, bt=bt, block=block,
-                                         use_pallas=True, symmetric=True))
+    want = np.asarray(bs.apsp_band_fw_whole(s0, bt=bt, block=block))
+    sym = np.asarray(bs.apsp_band_fw(s0, bt=bt, block=block,
+                                     impl="interpret"))
     np.testing.assert_array_equal(
         np.asarray(bs.band_threshold(jnp.asarray(sym), r)),
         np.asarray(bs.band_threshold(jnp.asarray(want), r)))

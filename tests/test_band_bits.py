@@ -2,7 +2,7 @@
 
 A uint8 band stores 8 indicator cells per byte (LSB-first); every banded
 consumer branches on the dtype, so packed and plain runs must be
-bit-identical end to end. The pack is the 8x HBM/relay lever past the
+bit-identical end to end. The pack is the 8x memory/download lever past the
 ~1M-point int8 euclidean ceiling (reference safe.py:389-399 serves that
 metric from a dense host pdist).
 """

@@ -38,7 +38,7 @@ def test_band_fw_sharded_matches_single(ndev):
     coords, edges, w, nr, rank, band, s = _setup(n, 7, 0, block)
     bt = band // block + 1
 
-    want = np.asarray(bs.apsp_band_fw(s, bt=bt, block=block, use_pallas=False))
+    want = np.asarray(bs.apsp_band_fw_whole(s, bt=bt, block=block))
 
     mesh = _mesh(ndev)
     _, nb, width, g_pad, local_rows = bsh.sharded_band_geometry(
@@ -46,7 +46,7 @@ def test_band_fw_sharded_matches_single(ndev):
     pad_rows = g_pad * block - s.shape[0]
     s_pad = jnp.pad(s, ((0, pad_rows), (0, 0)), constant_values=np.inf)
     got = np.asarray(bsh.apsp_band_fw_sharded(
-        s_pad, mesh=mesh, n=n, band=band, block=block, use_pallas=False))
+        s_pad, mesh=mesh, n=n, band=band, block=block))
 
     finite = np.isfinite(want)
     np.testing.assert_array_equal(np.isfinite(got[:want.shape[0]]), finite)
@@ -223,7 +223,7 @@ def test_band_fw_sharded_matches_oracle():
     s_pad = jnp.pad(s, ((0, g_pad * block - s.shape[0]), (0, 0)),
                     constant_values=np.inf)
     out = bsh.apsp_band_fw_sharded(s_pad, mesh=mesh, n=n, band=band,
-                                   block=block, use_pallas=False)
+                                   block=block)
     bt = band // block + 1
     dense = bs.unpack_band(np.asarray(out)[:(nb + 2 * bt) * block], n, band,
                            block)

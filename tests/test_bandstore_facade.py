@@ -98,8 +98,8 @@ def test_band_hypergeom_matches_full(net):
 
 def test_band_hypergeom_fdr_device_logspace(net):
     """multiple_testing=True at band scale runs BH ON DEVICE in log space
-    from the f32 log-survival (VERDICT r4 weak #2: the old path downloaded
-    and host-exp'd the full f64 (N, A) matrix). Pinned against the
+    from the f32 log-survival (never downloading and host-exp'ing the full
+    f64 (N, A) matrix). Pinned against the
     statsmodels-semantics BH oracle applied to the UNADJUSTED band p-values
     (reference safe.py:599-605) and against the dense engine."""
     from tests.test_fdr import _bh_oracle
@@ -128,7 +128,7 @@ def test_band_hypergeom_fdr_device_logspace(net):
 
 
 def test_band_logsf_host_streams_bit_equal(net):
-    """logsf_out='host' (the census-wall lever, VERDICT r4 item 1): every
+    """logsf_out='host' (the census-memory lever): every
     chunk's columns stream to host numpy buffers, nothing (N, A)-sized
     stays on device — and the results are BIT-EQUAL to the device-resident
     path, through the public surface."""
@@ -196,8 +196,7 @@ def test_band_logsf_host_with_fdr(net):
 
 
 def test_band_bt_bucket_results_identical(net):
-    """bt bucketing (compile-cache reuse across radius sweeps, VERDICT r4
-    item 6) only WIDENS the certified band — every public output is
+    """bt bucketing (compile-cache reuse across radius sweeps) only WIDENS the certified band — every public output is
     identical with bucketing on (default 4) vs off."""
     path, n = net
     attrs = _binary_attrs(n)
@@ -543,8 +542,8 @@ def test_band_gemm_downstream_matches_dense_scipy(net, tmp_path):
     GEMM jaccard clustering + device aggregates) lands the same domains,
     assignments, and TSV reports as the all-host reference formulation
     (dense APSP + f64 loop + scipy linkage) on a shared run — the
-    small-scale pin of tools/tpu_full_downstream_100k.py's entire chain
-    (reference safe.py:1380-1425 example flow)."""
+    small-scale pin of the full downstream chain (reference
+    safe.py:1380-1425 example flow)."""
     import matplotlib
     matplotlib.use("Agg")
     path, n = net
@@ -748,8 +747,7 @@ def test_band_hypergeom_defers_nes_and_releases_upload(net):
 
 
 def test_band_operand_cache_survives_runs_and_invalidates(net):
-    """Cross-run int8 operand cache (the 153 s -> 11.6 s steady fix at
-    199,680 x 4,373, tools/r4d_results.log): a repeat run_pipeline must HIT
+    """Cross-run int8 operand cache: a repeat run_pipeline must HIT
     `SAFE._band_operands_cache` (no re-derivation — at GO scale a miss costs
     a 3.49 GB re-upload per steady run), reloading attributes must
     invalidate it, and results stay correct either way."""

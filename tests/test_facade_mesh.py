@@ -216,7 +216,7 @@ def test_mesh_2d_apsp_through_facade(network):
 
 @pytest.mark.slow
 def test_mesh_band_go_full_width_through_facade(tmp_path):
-    """VERDICT r5 item 5: the FULL GO width (4,373 attributes) through the
+    """The FULL GO width (4,373 attributes) through the
     facade on the 8-device mesh — `sf.mesh = make_mesh({'data': 8});
     sf.run_pipeline()` just works: the per-shard HBM plan is asserted
     pre-dispatch (facade-native tools/mesh_band_go.py), the engine is

@@ -1,4 +1,4 @@
-"""Parity of the TPU hypergeometric survival function against the SciPy oracle.
+"""Parity of the device hypergeometric survival function against the SciPy oracle.
 
 The reference calls ``scipy.stats.hypergeom.sf(k - 1, M, K, n)`` elementwise
 (safepy/safe.py:596); BASELINE.json pins <=1e-6 p-value deviation.

@@ -216,7 +216,7 @@ def test_layouts_deterministic():
                               verbose=False)
     assert all(g1.nodes[n]["x"] == g2.nodes[n]["x"] for n in g1)
 
-    g3 = apply_network_layout(nx.path_graph(8), "spring_tpu", seed=5,
+    g3 = apply_network_layout(nx.path_graph(8), "spring_device", seed=5,
                               verbose=False)
     assert all(np.isfinite(g3.nodes[n]["x"]) for n in g3)
 
@@ -267,12 +267,12 @@ def test_chop_and_filter():
     assert "DNA" in label and "repair" in label and "of" not in label.split(", ")
 
 
-def test_spring_tpu_layout_quality():
+def test_spring_device_layout_quality():
     """The accelerator FR layout must place graph neighbors closer than
     non-neighbors on average (same qualitative property as nx spring)."""
-    from safepy_tpu.io.layout import spring_layout_tpu
+    from safepy_tpu.io.layout import spring_layout_device
     g = nx.connected_watts_strogatz_graph(40, 4, 0.1, seed=3)
-    pos = spring_layout_tpu(g, seed=0)
+    pos = spring_layout_device(g, seed=0)
     coords = np.array([pos[i] for i in range(40)])
     d = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)
     adj = nx.to_numpy_array(g) > 0
@@ -289,9 +289,9 @@ def test_facade_layout_algorithm_config(tmp_path):
             f.write(f"g{u}\tg{v}\t1.0\n")
     ini = tmp_path / "cfg.ini"
     ini.write_text(f"[Input files]\nnetworkfile = {net}\n"
-                   "layoutAlgorithm = spring_tpu\n"
+                   "layoutAlgorithm = spring_device\n"
                    "[Analysis parameters]\nrandomSeed = 3\n")
     sf = SAFE(path_to_ini_file=str(ini), verbose=False)
-    assert sf.layout_algorithm == "spring_tpu"
+    assert sf.layout_algorithm == "spring_device"
     sf.load_network(node_key_attribute="key")
     assert all(np.isfinite(sf.graph.nodes[n]["x"]) for n in sf.graph)

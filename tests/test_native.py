@@ -82,7 +82,6 @@ def test_large_roundtrip_speed(tmp_path, rng):
     native_s = time.time() - t0
     assert len(weights) == 100000
     assert len(labels) == len(set(labels))
-    # generous bound: measured ~0.1 s alone, but this image has ONE host
-    # core and the suite often shares it with a TPU battery's graph build
-    # (5.9 s observed under full contention)
+    # generous bound: ~0.1 s alone, but the suite runs several workers on
+    # few host cores
     assert native_s < 20.0

@@ -346,7 +346,7 @@ def test_min_xlsx_reader_types(tmp_path):
 def test_min_xlsx_gap_rows_and_absolute_target(tmp_path):
     """Writers may omit empty <row> elements and use absolute ('/xl/...')
     relationship targets; the reader must emit all-NaN gap rows (row
-    alignment) and resolve the rooted target (ADVICE r4)."""
+    alignment) and resolve the rooted target."""
     import zipfile
 
     from safepy_tpu.io.xlsx import read_xlsx
@@ -378,7 +378,7 @@ def test_min_xlsx_gap_rows_and_absolute_target(tmp_path):
 
 
 def test_costanzo_overlay_xlsx_branch(analyzed, tmp_path):
-    """VERDICT r3 item 4: the xlsx branch — the format safe-data actually
+    """The xlsx branch — the format safe-data actually
     ships (reference safe_io.py:549-551) — draws the same contours as the
     tsv fallback, through the engine-free SpreadsheetML reader."""
     from safepy_tpu.plotting import plot_costanzo2016_network_annotations

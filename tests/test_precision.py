@@ -1,5 +1,6 @@
-"""Matmul precision knob: 'default' (fast bf16 MXU path) agrees statistically
-with 'highest' (exact f32) on the permutation null."""
+"""Matmul precision knob: 'default' (the backend's fast f32 path — TF32 on an
+NVIDIA GPU) agrees statistically with 'highest' (exact f32) on the
+permutation null."""
 
 import networkx as nx
 import numpy as np
@@ -115,7 +116,7 @@ def test_zscore_centered_conditioning_dense_and_band(tmp_path, rng):
 
 
 def test_zscore_null_tie_counts_stable_across_precisions(tmp_path, rng):
-    """VERDICT r3 item 3: the centered z-score null's tie counts must not be
+    """The centered z-score null's tie counts must not be
     an artifact of matmul precision — 'highest' vs 'default' p-values agree
     except at a few exact ties."""
     n = 120
@@ -141,7 +142,7 @@ def test_zscore_null_tie_counts_stable_across_precisions(tmp_path, rng):
     # unlike the integer-valued sum scores, bit-identity is not required;
     # stability means every p-value moves by at most a few counts and the
     # bulk by <= 1. (On the CPU test mesh the precisions coincide and the
-    # diff is exactly zero; the bound bites on real MXU hardware.)
+    # diff is exactly zero; the bound bites on a GPU's TF32 path.)
     np.testing.assert_array_equal(np.isnan(results["highest"]),
                                   np.isnan(results["default"]))
     diff = np.abs(results["highest"] - results["default"])

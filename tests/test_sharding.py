@@ -83,7 +83,7 @@ def test_apsp_sharded_matches_oracle(rng, mesh_data):
     w = rng.uniform(0.1, 2.0, size=len(edges))
     d0 = dense_initial_distances(n, edges, w)
 
-    got = np.asarray(apsp_sharded(d0, mesh_data, block=16, use_pallas=False))
+    got = np.asarray(apsp_sharded(d0, mesh_data, block=16))
     m = sp.coo_matrix((w, (edges[:, 0], edges[:, 1])), shape=(n, n))
     want = csgraph.shortest_path(m, directed=False)
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -92,7 +92,7 @@ def test_apsp_sharded_matches_oracle(rng, mesh_data):
 def test_apsp_sharded_disconnected(mesh_data):
     edges = np.array([[0, 1], [2, 3]])
     d0 = dense_initial_distances(5, edges, None)
-    got = np.asarray(apsp_sharded(d0, mesh_data, block=8, use_pallas=False))
+    got = np.asarray(apsp_sharded(d0, mesh_data, block=8))
     assert np.isinf(got[0, 2]) and got[0, 1] == 1.0 and np.isinf(got[4, 0])
 
 
@@ -138,7 +138,7 @@ def test_apsp_sharded_2d_matches_oracle():
 
     for axes in ({"row": 2, "col": 4}, {"row": 4, "col": 2}):
         mesh = make_mesh(axes)
-        out = np.asarray(apsp_sharded_2d(d0, mesh, block=16, use_pallas=False))
+        out = np.asarray(apsp_sharded_2d(d0, mesh, block=16))
         finite = np.isfinite(ref)
         np.testing.assert_allclose(out[finite], ref[finite],
                                    rtol=1e-5, atol=1e-6)

@@ -13,7 +13,7 @@ linearly and are measured here BEFORE optimizing:
 Sampling strategy: the per-attribute loop is timed on `--sample-attrs`
 attributes and extrapolated linearly; the pdist is timed on a
 `--sample-pdist`-row subset and extrapolated quadratically (both stages are
-embarrassingly uniform). Run entirely on host CPU; no TPU required.
+embarrassingly uniform). Runs entirely on the host CPU.
 
 Usage: python tools/domain_scale_profile.py [--nodes 99840] [--attrs 4373]
 """
@@ -139,7 +139,7 @@ def main():
     t_gemm = time.perf_counter() - t0
     print(f"jaccard via GEMM (host f32): {t_gemm:.2f}s for {m} rows -> "
           f"extrapolated {t_gemm * scale:.1f}s for {a} "
-          f"(TPU MXU would be ~{2 * a * a * n / 200e12 * 1e3:.0f} ms of FLOPs)")
+          f"({2 * a * a * n / 1e9:.0f} GFLOP)")
 
     # --- stage 3: domain count stack (define_domains counts + max_nes) ---
     doms = np.sort(np.random.default_rng(1).integers(1, 40, size=a))
